@@ -1,0 +1,57 @@
+"""The port stands alone: no module of src/repro_torch/ and not
+chip_smoke.py imports jax or the JAX package ``repro``, and importing
+``repro_torch`` leaves jax out of ``sys.modules``."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytestmark = pytest.mark.fast
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def port_files():
+    pkg = os.path.join(ROOT, "src", "repro_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(pkg):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_found():
+    files = port_files()
+    assert len(files) > 15
+    assert any(f.endswith("engine.py") for f in files)
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import(path):
+    bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
+            "peel_round, repro_torch.kernels.segment_sum, repro_torch.graph."
+            "generators; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

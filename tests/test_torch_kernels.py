@@ -1,0 +1,138 @@
+"""The port's kernel wrappers and plain twins vs the reference's oracles.
+
+CPU: ``repro_torch.kernels.ref`` vs ``repro.kernels.ref`` and the Pallas
+kernels in interpret mode, and the wrappers (which take their plain
+version on CPU tensors) vs the same oracles.  Integer outputs must be
+equal element for element; float32 segment sums agree to 1e-5 relative
+(the sums are taken in another order).
+
+The CUDA kernels themselves are held to these plain versions by
+tests/test_torch_cuda.py (on a card) and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.peel_round import (chunk_windows, fused_peel_round as
+                                      j_fused_peel_round, peel_round_plan)
+from repro.kernels.segment_sum import segment_sum_sorted, sorted_ids_plan
+
+from repro_torch.kernels import launch_counts, ref
+from repro_torch.kernels.peel_round import fused_peel_round
+from repro_torch.kernels.segment_sum import segment_sum
+
+pytestmark = pytest.mark.fast
+
+
+def t(x):
+    return torch.tensor(np.array(x))
+
+
+def random_round(rng, n_r, E, C, pad_members=True):
+    """A rid-sorted plan + a consistent random round state."""
+    rids = np.sort(rng.integers(0, n_r, E)).astype(np.int32)
+    members = rng.integers(0, n_r, (E, C)).astype(np.int32)
+    if pad_members and E:
+        members[rng.random((E, C)) < 0.05] = -1
+    deg = rng.integers(0, 12, n_r).astype(np.int32)
+    peeled = rng.integers(0, 2, n_r).astype(np.int32)
+    core = rng.integers(-1, 9, n_r).astype(np.int32)
+    order = rng.integers(-1, 9, n_r).astype(np.int32)
+    return rids, members, (deg, peeled, core, order)
+
+
+def offsets_of(rids, n_r):
+    return np.searchsorted(rids, np.arange(n_r + 1), side="left").astype(
+        np.int32)
+
+
+def assert_round(got, want):
+    for g, w, name in zip(got, want, ("deg", "peeled", "core", "order")):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("n_r,E,C", [(1, 1, 3), (50, 200, 3), (97, 513, 4),
+                                     (33, 0, 3), (64, 300, 2)])
+def test_peel_round_ref_and_wrapper_match_reference(n_r, E, C):
+    rng = np.random.default_rng(n_r * 1000 + E)
+    rids, members, state = random_round(rng, n_r, E, C)
+    # pad edges (id = n_r, members -1) after the real ones, as the
+    # reference's plan lays them out
+    ids_pad = np.concatenate([rids, np.full(7, n_r, np.int32)])
+    mem_pad = np.concatenate([members, np.full((7, C), -1, np.int32)])
+    for level in (0, 3, 7, 11):
+        want = jref.peel_round_ref(ids_pad, mem_pad, *state, level, 5)
+        got = ref.peel_round_ref(t(ids_pad), t(mem_pad),
+                                 *(t(x) for x in state), level, 5)
+        assert_round(got, want)
+        before = dict(launch_counts)
+        wrapped = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
+                                   *(t(x) for x in state), level, 5)
+        assert launch_counts == before  # CPU tensors: plain, no launch
+        assert_round(wrapped, want)
+
+
+@pytest.mark.parametrize("n_r,E", [(50, 65), (130, 400)])
+def test_peel_round_matches_pallas_interpret(n_r, E):
+    """The Pallas megakernel (interpret mode) on its padded plan vs the
+    port's wrapper on the CSR plan of the same edges."""
+    rng = np.random.default_rng(E)
+    block_n, chunk_e = 32, 64
+    rids, members, state = random_round(rng, n_r, E, 3)
+    ids_p, mem_p, n_r_pad, max_chunks = peel_round_plan(
+        rids, members, n_r, block_n=block_n, chunk_e=chunk_e)
+    ids_p, mem_p = jnp.asarray(ids_p), jnp.asarray(mem_p)
+    pad = n_r_pad - n_r
+    padded = [np.concatenate([x, np.full(pad, fill, np.int32)])
+              for x, fill in zip(state, (0, 1, -1, -1))]
+    c0, nch = chunk_windows(ids_p, n_r_pad, block_n, chunk_e, max_chunks)
+    for level in (2, 6):
+        want = j_fused_peel_round(
+            ids_p, mem_p, *(jnp.asarray(x) for x in padded),
+            jnp.int32(level), jnp.int32(3), c0, nch, block_n=block_n,
+            chunk_e=chunk_e, max_chunks=max_chunks, interpret=True)
+        got = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
+                               *(t(x) for x in state), level, 3)
+        assert_round(got, [np.asarray(w)[:n_r] for w in want])
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("d", [1, 4])
+def test_segment_sum_matches_reference(dtype, d):
+    rng = np.random.default_rng(d)
+    n_seg, E = 70, 300
+    ids = np.sort(rng.integers(0, n_seg, E)).astype(np.int32)
+    # trailing pad rows carry id = n_seg and must be dropped
+    ids = np.concatenate([ids, np.full(5, n_seg, np.int32)])
+    if dtype == "int32":
+        data = rng.integers(-3, 9, (E + 5, d)).astype(np.int32)
+    else:
+        data = rng.standard_normal((E + 5, d)).astype(np.float32)
+    want = np.asarray(jref.segment_sum_ref(data, ids, n_seg))
+    for got in (ref.segment_sum_ref(t(data), t(ids), n_seg),
+                segment_sum(t(data), t(ids), n_seg)):
+        assert got.dtype == getattr(torch, dtype)
+        if dtype == "int32":
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_segment_sum_matches_pallas_interpret():
+    rng = np.random.default_rng(3)
+    n_seg, E = 200, 700
+    ids = np.sort(rng.integers(0, n_seg, E)).astype(np.int32)
+    data = rng.integers(0, 2, (E, 1)).astype(np.int32)
+    ids_p, n_seg_pad, max_chunks = sorted_ids_plan(ids, n_seg, block_n=64,
+                                                   chunk_e=128)
+    data_p = np.zeros((ids_p.shape[0], 1), np.int32)
+    data_p[:E] = data
+    want = segment_sum_sorted(jnp.asarray(data_p), jnp.asarray(ids_p),
+                              n_seg_pad, block_n=64, chunk_e=128,
+                              max_chunks=max_chunks, interpret=True)
+    got = segment_sum(t(data), t(ids), n_seg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:n_seg])
