@@ -3,16 +3,27 @@
 Drives ``repro_torch``'s main path, ``decompose(graph, NucleusConfig())`` at
 its defaults ((2,3), exact, dense, fused hierarchy, eager build), on a seeded
 graph of about a million vertices, ten million edges and ten million
-triangles, and checks every kernel of the path against its plain-torch
-version on the card.  Phases (any failure ends the run with a non-zero exit):
+triangles, then the memory-bounded chunked build on the card: its dense
+(2,3) fast path on a 32,768-vertex graph and its sparse seed-chunked path on
+the million-vertex graph.  Every kernel of those paths is checked against
+its plain-torch version on the card.  Phases (any failure ends the run with
+a non-zero exit):
 
   1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc);
-  2. each kernel vs its plain version at the smoke graph's plan, with times;
+  2. each kernel vs its plain version, with times: the round kernels at the
+     smoke graph's plan, tricount at ragged small n and on the 32k graph's
+     oriented adjacency;
   3. the main path, with the megakernel's launch count == peel rounds;
   4. the segment-sum path (``fused_kernel=False``), bit-identical to phase 3;
-  5. card vs CPU on a ~20k-vertex graph (exact and approx) and the golden
-     fixtures of tests/golden on the card;
-  6. a JSON line of per-kernel numbers, the card's name and power limit,
+  5. the chunked build: ``decompose(g32k, build="chunked", 24 GiB budget)``
+     takes the dense fast path (one tricount launch) and equals the eager
+     decompose; the sparse path on the smoke graph (4 GiB budget, many
+     chunks) reproduces phase 2's eager arrays; the ba4k build fingerprint
+     of tests/golden/build;
+  6. card vs CPU on a ~20k-vertex graph (exact and approx) and the golden
+     fixtures of tests/golden on the card, eager and chunked (fast and
+     sparse);
+  7. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -21,6 +32,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -32,8 +44,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core rate (data sheet)
 SMOKE_N = 1_000_000  # vertices of the smoke graph
 SMALL_N = 20_000     # vertices of the card-vs-CPU graph
+DENSE_N = 32_768     # vertices of the chunked build's dense fast-path graph
+DENSE_BUDGET = 24 << 30   # >= 5·n²·4 at DENSE_N: the dense (2,3) fast path
+SPARSE_BUDGET = 4 << 30   # far under 5·n²·4 at SMOKE_N: the sparse path
+RAGGED_N = (1, 127, 130, 257)
+FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0")
 
 
 def log(msg: str) -> None:
@@ -65,6 +83,72 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def problem_digest(problem) -> str:
+    """SHA-256 over the five incidence arrays + orientation, computed as
+    benchmarks/build_child.py computes the build fingerprint."""
+    h = hashlib.sha256()
+    for f in FIELDS:
+        a = np.ascontiguousarray(getattr(problem, f).cpu().numpy())
+        h.update(f.encode())
+        h.update(str(a.shape).encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
+    h.update(problem.orientation.encode())
+    return h.hexdigest()
+
+
+def phase_tricount(g32k, seed: int):
+    """Phase 2, tricount: kernel vs plain at ragged small n (both operand
+    layouts, random 0/1 with no symmetry, so a transposed operand would
+    show) and on the 32k graph's oriented adjacency, with times."""
+    from repro_torch.kernels.tricount import (tricount_oriented,
+                                              tricount_oriented_plain,
+                                              tricount_per_edge,
+                                              tricount_per_edge_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pairs = ((tricount_oriented, tricount_oriented_plain),
+             (tricount_per_edge, tricount_per_edge_plain))
+    for n in RAGGED_N:
+        a = (torch.rand((n, n), generator=gen, device="cuda") < 0.3).float()
+        for kernel, plain in pairs:
+            require(torch.equal(kernel(a), plain(a)),
+                    f"{kernel.__name__} differs from its plain version at "
+                    f"n={n}")
+    log(f"[kernels] tricount oriented/per_edge at n={RAGGED_N}: equal to "
+        f"plain")
+    from repro_torch.core.incidence import dense_dag, pick_rank
+    dg, _ = pick_rank(g32k)
+    dense = dense_dag(dg)[2]
+    n = g32k.n
+    err = 0.0
+    for kernel, plain in pairs:
+        got = kernel(dense)
+        want = plain(dense)
+        err = max(err, float((got - want).abs().max()))
+        require(torch.equal(got, want),
+                f"{kernel.__name__} differs from its plain version on the "
+                f"{n}-vertex graph's oriented adjacency")
+        if kernel is tricount_oriented:
+            n_tri = int(got.sum())
+        del got, want
+    torch.cuda.empty_cache()
+    log(f"[kernels] tricount oriented/per_edge at n={n} (dmax={dg.dmax}, "
+        f"{n_tri} triangles): equal to plain")
+    tc_ms = cuda_ms(lambda: tricount_oriented(dense), 5)
+    tc_plain = cuda_ms(lambda: tricount_oriented_plain(dense), 1, 1)
+    tc_lib = cuda_ms(lambda: torch.mm(dense, dense.t()).mul_(dense), 1, 1)
+    bound_ms = 1e3 * max(16.0 * n * n / HBM_BYTES_PER_S,
+                         2.0 * n ** 3 / INT8_OPS_PER_S)
+    del dense
+    torch.cuda.empty_cache()
+    return {"name": "tricount", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tricount.cu",
+            "replaces": "src/repro/kernels/tricount.py:67",
+            "max_abs_err": err, "ms": tc_ms, "plain_ms": tc_plain,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "library_ms": tc_lib}
 
 
 def phase_kernels(problem, seed: int):
@@ -218,6 +302,28 @@ def profile_peel(problem) -> None:
             f"{e.key[:90]}")
 
 
+def paired_build_s(g, budget: int):
+    """Wall seconds of build_problem(g, 2, 3) in turns eager, chunked,
+    chunked, eager (each ending in a device sync), so the two builders
+    are compared on one card in one run."""
+    from repro_torch.core import build_problem
+    out = []
+    for build in ("eager", "chunked", "chunked", "eager"):
+        kw = {"memory_budget_bytes": budget} if build == "chunked" else {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        build_problem(g, 2, 3, build=build, **kw)
+        torch.cuda.synchronize()
+        out.append(round(time.perf_counter() - t, 4))
+    return out
+
+
+def log_phase(k: int, since: float) -> float:
+    now = time.perf_counter()
+    log(f"[phase {k}] {now - since:.2f} s")
+    return now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -230,12 +336,15 @@ def main() -> int:
     from repro_torch import NucleusConfig, decompose
     from repro_torch.core import (build_problem, canonicalize_labels,
                                   dense_coreness, make_schedule)
-    from repro_torch.graph.generators import (community_power_law,
+    from repro_torch.graph.generators import (barabasi_albert,
+                                              community_power_law,
                                               golden_suite)
     from repro_torch.kernels import _build, launch_counts, \
         reset_launch_counts
 
     # -- phase 1: the card and the kernel build ---------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
+    phase_t = time.perf_counter()
     smi = smi_line()
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -246,6 +355,7 @@ def main() -> int:
     log(f"[build] {os.path.relpath(lib, ROOT)} from "
         f"{[os.path.relpath(s, ROOT) for s in _build.sources()]} in "
         f"{time.perf_counter() - t:.2f} s")
+    phase_t = log_phase(1, phase_t)
 
     # -- phase 2: the smoke graph, its plan, kernels vs plain -------------
     t = time.perf_counter()
@@ -261,8 +371,12 @@ def main() -> int:
         f"{4 * problem.n_s * problem.n_sub ** 2} generate_s={gen_s:.2f} "
         f"build_s={build_s:.2f}")
     rows = phase_kernels(problem, args.seed)
+    eager_digest = problem_digest(problem)
     del problem
     torch.cuda.empty_cache()
+    g32k = community_power_law(DENSE_N, seed=args.seed, device="cuda")
+    rows.append(phase_tricount(g32k, args.seed))
+    phase_t = log_phase(2, phase_t)
 
     # -- phase 3: the main path --------------------------------------------
     reset_launch_counts()
@@ -327,6 +441,8 @@ def main() -> int:
             f"{big.vertices.size} vertices, density {big.density:.3f} "
             f"({q_s:.2f} s)")
 
+    phase_t = log_phase(3, phase_t)
+
     # -- phase 4: the segment-sum path on the same problem ----------------
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -358,8 +474,81 @@ def main() -> int:
     rows[1]["path"] = "dense_coreness(fused_kernel=False)"
     del dec, p, core4, order4, parent4, L4, core_t
     torch.cuda.empty_cache()
+    phase_t = log_phase(4, phase_t)
 
-    # -- phase 5: card vs CPU, and the golden fixtures on the card ---------
+    # -- phase 5: the chunked build, dense fast path and sparse path ------
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dch = decompose(g32k, NucleusConfig(build="chunked",
+                                        memory_budget_bytes=DENSE_BUDGET))
+    torch.cuda.synchronize()
+    dch_s = time.perf_counter() - t
+    dense_counts = dict(launch_counts)
+    st = dch.problem.build_stats
+    log(f"[chunked] decompose(g32k, build='chunked', budget={DENSE_BUDGET}):"
+        f" n={g32k.n} m={g32k.m} n_r={dch.n_r} n_s={dch.problem.n_s} "
+        f"rounds={dch.rounds} decompose_s={dch_s:.2f} build_stats={st} "
+        f"launches={dense_counts}")
+    require(st["fastpath"], "the 24 GiB budget did not take the dense path")
+    require(dense_counts["tricount"] == 1,
+            f"tricount launched {dense_counts['tricount']} times, not once")
+    require(dense_counts["peel_round"] == dch.rounds,
+            "megakernel launches != rounds on the chunked path")
+    t = time.perf_counter()
+    deg = decompose(g32k, NucleusConfig())
+    torch.cuda.synchronize()
+    deg_s = time.perf_counter() - t
+    for f in FIELDS:
+        require(torch.equal(getattr(dch.problem, f),
+                            getattr(deg.problem, f)),
+                f"chunked dense-path {f} differs from the eager build")
+    require(dch.rounds == deg.rounds, "chunked path: rounds differ")
+    for name in ("core", "order_round", "uf_parent", "uf_L"):
+        require(np.array_equal(getattr(dch, name), getattr(deg, name)),
+                f"chunked path: {name} differs from the eager decompose")
+    b32 = paired_build_s(g32k, DENSE_BUDGET)
+    log(f"[chunked] dense path == eager (5 arrays, core, rounds, "
+        f"order_round, uf_parent, uf_L); eager decompose_s={deg_s:.2f}; "
+        f"build_s eager/chunked/chunked/eager={b32}")
+    rows[2]["launches"] = dense_counts["tricount"]
+    rows[2]["path"] = ("decompose(g32k, NucleusConfig(build='chunked', "
+                       "memory_budget_bytes=24 << 30))")
+    del dch, deg, g32k
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sp = build_problem(g, 2, 3, build="chunked",
+                       memory_budget_bytes=SPARSE_BUDGET)
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t
+    st = sp.build_stats
+    require(st["n_chunks"] > 1 and not st["fastpath"],
+            f"the sparse chunked build ran {st}")
+    require(problem_digest(sp) == eager_digest,
+            "the sparse chunked build differs from phase 2's eager build")
+    del sp
+    torch.cuda.empty_cache()
+    b1m = paired_build_s(g, SPARSE_BUDGET)
+    log(f"[chunked] sparse path on the smoke graph: build_s={sp_s:.2f} "
+        f"n_chunks={st['n_chunks']} chunk_size={st['chunk_size']}: digest "
+        f"equal to the eager build; build_s eager/chunked/chunked/eager="
+        f"{b1m}")
+    with open(os.path.join(ROOT, "tests", "golden", "build",
+                           "ba4k_build_r2s3.json")) as f:
+        fx = json.load(f)
+    ba = build_problem(barabasi_albert(4000, 8, seed=7, device="cuda"),
+                       fx["r"], fx["s"], build="chunked",
+                       memory_budget_bytes=fx["budget"])
+    require(problem_digest(ba) == fx["digest"],
+            "the ba4k chunked build differs from its committed fingerprint")
+    log(f"[chunked] ba4k (2,3) at budget {fx['budget']}: n_chunks="
+        f"{ba.build_stats['n_chunks']}, digest equal to "
+        f"tests/golden/build/ba4k_build_r2s3.json")
+    phase_t = log_phase(5, phase_t)
+
+    # -- phase 6: card vs CPU, and the golden fixtures on the card ---------
     small = community_power_law(SMALL_N, seed=args.seed + 1,
                                 device="cpu")
     for method in ("exact", "approx"):
@@ -387,26 +576,32 @@ def main() -> int:
     gdir = os.path.join(ROOT, "tests", "golden")
     suite = golden_suite()
     n_fx = 0
+    builds = {"eager": {}, "chunked-fast": {"build": "chunked",
+                                            "memory_budget_bytes": 1 << 30},
+              "chunked-sparse": {"build": "chunked", "build_chunk_size": 3}}
     for fname in sorted(os.listdir(gdir)):
         if not fname.endswith(".json"):
             continue
         with open(os.path.join(gdir, fname)) as f:
             fx = json.load(f)
-        d = decompose(suite[fx["graph"]](device="cuda"),
-                      NucleusConfig(r=fx["r"], s=fx["s"]))
-        require(d.n_r == fx["n_r"], f"{fname}: n_r differs")
-        if d.n_r:
-            require(np.array_equal(d.core, fx["core"]),
-                    f"{fname}: core differs from the fixture")
-            for c, want in fx["partitions"].items():
-                require(np.array_equal(canonicalize_labels(d.cut(int(c))),
-                                       want),
-                        f"{fname}: cut({c}) differs from the fixture")
+        for bname, kw in builds.items():
+            d = decompose(suite[fx["graph"]](device="cuda"),
+                          NucleusConfig(r=fx["r"], s=fx["s"], **kw))
+            what = f"{fname} ({bname})"
+            require(d.n_r == fx["n_r"], f"{what}: n_r differs")
+            if d.n_r:
+                require(np.array_equal(d.core, fx["core"]),
+                        f"{what}: core differs from the fixture")
+                for c, want in fx["partitions"].items():
+                    require(np.array_equal(
+                        canonicalize_labels(d.cut(int(c))), want),
+                        f"{what}: cut({c}) differs from the fixture")
         n_fx += 1
-    log(f"[golden] {n_fx} fixtures: core and cut partitions equal on the "
-        f"card")
+    log(f"[golden] {n_fx} fixtures x {list(builds)}: core and cut "
+        f"partitions equal on the card")
+    phase_t = log_phase(6, phase_t)
 
-    # -- phase 6: the result lines ------------------------------------------
+    # -- phase 7: the result lines ------------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

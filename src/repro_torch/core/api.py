@@ -2,10 +2,11 @@
 
 Counterpart of ``repro.core.api`` for this slice of the port: the dense
 backend, exact or approx peeling, the fused hierarchy or none, the eager
-build, one device.  ``Decomposition`` holds the results as host numpy
-arrays and answers ``tree``/``cut(c)``/``nuclei(c)`` lazily with caching,
-as the reference does.  Any configuration outside the slice raises
-``ConfigError`` naming the value as not yet ported (ROADMAP Queue 1).
+or the memory-bounded chunked build, one device.  ``Decomposition`` holds
+the results as host numpy arrays and answers ``tree``/``cut(c)``/
+``nuclei(c)`` lazily with caching, as the reference does.  Any
+configuration outside the slice raises ``ConfigError`` naming the value
+as not yet ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ HIERARCHIES = ("fused", "none")
 NOT_PORTED = {
     "backend": ("gather", "sharded", "nh", "auto"),
     "hierarchy": ("replay", "two_phase", "basic", "auto"),
-    "build": ("chunked", "sharded"),
+    "build": ("sharded",),
 }
 
 
@@ -60,7 +61,16 @@ class NucleusConfig:
                    the hand-written kernels (on CPU tensors, their plain
                    versions), False on plain torch, and None (default)
                    resolves to True on CUDA and False on the CPU.
-      build      — "eager": the one-burst incidence build.
+      build      — incidence builder: "eager" (one-burst expansion) or
+                   "chunked" (memory-bounded source-vertex chunks and a
+                   two-pass count-then-fill assembly; for (2,3) within
+                   budget, the dense count pass on the tricount kernel).
+                   Both are bit-identical.
+      memory_budget_bytes — the chunked build's intermediate-memory
+                   budget (None = a 256 MiB default); sets the chunk size
+                   and decides the (2,3) dense fast path.
+      build_chunk_size — explicit source vertices per chunk (overrides the
+                   budget-derived size; pins the sparse chunked path).
     """
 
     r: int = 2
@@ -71,6 +81,8 @@ class NucleusConfig:
     hierarchy: str = "fused"
     use_kernel: Optional[bool] = None
     build: str = "eager"
+    memory_budget_bytes: Optional[int] = None
+    build_chunk_size: Optional[int] = None
 
     def validate(self) -> "NucleusConfig":
         if not 1 <= self.r < self.s:
@@ -83,6 +95,28 @@ class NucleusConfig:
         if self.method == "approx" and not self.delta > 0:
             raise ConfigError(
                 f"method='approx' needs delta > 0, got {self.delta}")
+        # the reference's build-knob rules and messages; its budget is also
+        # legal with backend='auto', which the port does not run
+        if self.memory_budget_bytes is not None:
+            if self.build != "chunked":
+                raise ConfigError(
+                    "memory_budget_bytes sizes the chunked/sharded "
+                    "incidence builders (or guides backend='auto'); set "
+                    "build='chunked'/'sharded', backend='auto', or drop "
+                    "the budget")
+            if self.memory_budget_bytes <= 0:
+                raise ConfigError(
+                    f"memory_budget_bytes must be positive, got "
+                    f"{self.memory_budget_bytes}")
+        if self.build_chunk_size is not None:
+            if self.build != "chunked":
+                raise ConfigError(
+                    "build_chunk_size is the chunked/sharded builders' "
+                    "chunk; set build='chunked'/'sharded' or drop it")
+            if self.build_chunk_size <= 0:
+                raise ConfigError(
+                    f"build_chunk_size must be positive, got "
+                    f"{self.build_chunk_size}")
         return self
 
 
@@ -224,7 +258,9 @@ def resolve_problem(graph_or_problem, config: NucleusConfig,
                         f"{type(graph_or_problem).__name__}")
     config.validate()
     problem = build_problem(graph_or_problem, config.r, config.s,
-                            build=config.build, device=dev)
+                            build=config.build,
+                            memory_budget_bytes=config.memory_budget_bytes,
+                            chunk_size=config.build_chunk_size, device=dev)
     return problem, config
 
 

@@ -15,12 +15,14 @@ output on graphs with millions of edges.
 """
 from __future__ import annotations
 
+import dataclasses
 from itertools import combinations
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
-from .container import Digraph, INT, PAD
+from .container import Digraph, Graph, INT, PAD, orient
+from .orientation import degree_rank
 
 # candidate entries processed per row block of the batched intersection
 _BLOCK_ELEMS = 1 << 26
@@ -32,7 +34,9 @@ def _intersect_rows(cand: torch.Tensor, w: torch.Tensor, adj: torch.Tensor,
 
     The reference's jnp version also takes the candidate counts, which it
     does not read (the search is bounded by ``outdeg[w]``); this signature
-    is its numpy twin's, ``_intersect_rows_np``.
+    is its numpy twin's, ``_intersect_rows_np``, and so is the third
+    return value: the bytes of the transients this call held (gathered
+    adjacency rows, int64 positions, the hit-masked rows).
     """
     rows = adj[w.long()]
     wl = rows.shape[1]
@@ -43,23 +47,28 @@ def _intersect_rows(cand: torch.Tensor, w: torch.Tensor, adj: torch.Tensor,
     kept = torch.where(hit, cand, torch.full_like(cand, PAD))
     kept = torch.sort(kept, dim=1).values  # PADs (int32 max) move to the tail
     nkept = (kept != PAD).sum(dim=1, dtype=torch.int32)
-    return kept, nkept
+    work = rows.numel() * 4 + pos.numel() * 8 + 2 * kept.numel() * 4
+    return kept, nkept, work
 
 
 def _next_candidates(cand: torch.Tensor, rep: torch.Tensor, c: torch.Tensor,
                      adj: torch.Tensor, outdeg: torch.Tensor):
     """``_intersect_rows(cand[rep], c, adj, outdeg)`` in row blocks, each
     block cut to its widest row and the result padded to the global widest
-    row (never wider than the reference's, never losing a candidate)."""
+    row (never wider than the reference's, never losing a candidate).
+    Also returns the largest block's transient bytes."""
     total = int(rep.shape[0])
     width = max(int(cand.shape[1]), 1)
     step = max(1, _BLOCK_ELEMS // width)
     parts: List[torch.Tensor] = []
     counts: List[torch.Tensor] = []
     wmax = 0
+    work = 0
     for b0 in range(0, total, step):
         r = rep[b0:b0 + step]
-        kept, nkept = _intersect_rows(cand[r], c[b0:b0 + step], adj, outdeg)
+        kept, nkept, w = _intersect_rows(cand[r], c[b0:b0 + step], adj,
+                                         outdeg)
+        work = max(work, w + kept.numel() * 4)
         wb = int(nkept.max()) if nkept.numel() else 0
         parts.append(kept[:, :wb])
         counts.append(nkept)
@@ -72,7 +81,25 @@ def _next_candidates(cand: torch.Tensor, rep: torch.Tensor, c: torch.Tensor,
         at += p.shape[0]
     ncand = torch.cat(counts) if counts else \
         torch.zeros((0,), dtype=INT, device=cand.device)
-    return out, ncand
+    return out, ncand, work
+
+
+def _pairs(cand: torch.Tensor, ncand: torch.Tensor):
+    """Every (row, candidate) pair of a level, row-major: (rep, c, total),
+    or None when the level has no candidate (rows with none repeat zero
+    times; the reference drops them first, and the surviving order is
+    the same)."""
+    total = int(ncand.sum(dtype=torch.int64)) if ncand.numel() else 0
+    if total == 0:
+        return None
+    dev = cand.device
+    counts = ncand.long()
+    rep = torch.repeat_interleave(
+        torch.arange(int(ncand.shape[0]), device=dev), counts,
+        output_size=total)
+    pos = torch.arange(total, device=dev) - \
+        (torch.cumsum(counts, 0) - counts)[rep]
+    return rep, cand[rep, pos], total
 
 
 def expand_levels(dg: Digraph, seeds: torch.Tensor,
@@ -80,10 +107,22 @@ def expand_levels(dg: Digraph, seeds: torch.Tensor,
     """Level-synchronous expansion from the level-1 `seeds` vertices.
 
     Returns ``{t: (N_t, t) rows for t in ks}`` with rows of ascending vertex
-    ids, row for row equal to the reference's first return value.  (The
-    reference also returns a peak-memory estimate for its chunked builder,
-    which this slice does not port.)
+    ids, row for row equal to the reference's first return value.  Because
+    the DAG orientation gives every clique a unique discovery path,
+    expansions from disjoint seed ranges are duplicate-free and their
+    outputs, concatenated in seed order, are the all-vertices expansion
+    row for row: the chunked build's invariant.  (The reference also
+    returns a peak-memory estimate; ``iter_clique_chunks`` yields the
+    port's own.)
     """
+    return expand_levels_metered(dg, seeds, ks)[0]
+
+
+def expand_levels_metered(dg: Digraph, seeds: torch.Tensor, ks):
+    """``expand_levels`` plus the port's account of its peak device bytes:
+    the largest level's vertex rows (gathered, then concatenated), its
+    repeat/position index tensors, the next candidate tensor and one row
+    block of the intersection's transients."""
     ks = sorted(set(int(k) for k in ks))
     kmax = ks[-1]
     dev = dg.adj.device
@@ -93,32 +132,92 @@ def expand_levels(dg: Digraph, seeds: torch.Tensor,
         cand, ncand = dg.adj, dg.outdeg
     else:
         cand, ncand = dg.adj[seeds.long()], dg.outdeg[seeds.long()]
+    peak = (verts.numel() + cand.numel() + ncand.numel()) * 4
     if 1 in ks:
         out[1] = verts
 
     for t in range(2, kmax + 1):
-        # rows with no candidate simply repeat zero times (the reference
-        # drops them first; the surviving order is the same)
-        total = int(ncand.sum(dtype=torch.int64)) if ncand.numel() else 0
-        if total == 0:
+        pairs = _pairs(cand, ncand)
+        if pairs is None:
             for kk in ks:
                 if kk >= t:
                     out[kk] = torch.zeros((0, kk), dtype=INT, device=dev)
-            return out
-        counts = ncand.long()
-        rep = torch.repeat_interleave(
-            torch.arange(verts.shape[0], device=dev), counts,
-            output_size=total)
-        starts = torch.cumsum(counts, 0) - counts
-        pos = torch.arange(total, device=dev) - starts[rep]
-        c = cand[rep, pos]
+            return out, peak
+        rep, c, total = pairs
         verts = torch.cat([verts[rep], c[:, None]], dim=1)
         if t in ks:
             out[t] = torch.sort(verts, dim=1).values
+        work = 0
         if t < kmax:
-            cand, ncand = _next_candidates(cand, rep, c, dg.adj, dg.outdeg)
-        del rep, pos, c
-    return out
+            cand, ncand, work = _next_candidates(cand, rep, c, dg.adj,
+                                                 dg.outdeg)
+            work += (cand.numel() + ncand.numel()) * 4
+        # verts (gathered + concatenated), rep/pos int64, c int32
+        peak = max(peak, 2 * verts.numel() * 4 + total * 20 + work)
+        del rep, c, pairs
+    return out, peak
+
+
+@dataclasses.dataclass
+class CliqueLevels:
+    """t-cliques for the levels requested; rows are ascending vertex ids."""
+
+    levels: Dict[int, torch.Tensor]
+
+    def count(self, t: int) -> int:
+        return int(self.levels[t].shape[0])
+
+
+def list_cliques(g: Graph, ks, rank: Optional[torch.Tensor] = None,
+                 dg: Optional[Digraph] = None) -> CliqueLevels:
+    """List all t-cliques for each t in `ks` (max(ks) drives the expansion),
+    on `g`'s device.  Without `dg` the graph is oriented by `rank`
+    (default: ``degree_rank``), as in the reference."""
+    if dg is None:
+        dg = orient(g, degree_rank(g) if rank is None else rank)
+    return CliqueLevels(expand_levels(
+        dg, torch.arange(g.n, dtype=INT, device=g.device), ks))
+
+
+def iter_clique_chunks(dg: Digraph, ks, chunk_size: int, *,
+                       start: int = 0, stop: Optional[int] = None):
+    """Chunked clique listing: expand `chunk_size` source vertices at a time.
+
+    Yields ``(start, levels, peak_bytes)`` per contiguous seed range, with
+    levels as tensors on the digraph's device and ``peak_bytes`` the port's
+    account of that chunk's expansion (``expand_levels_metered``).
+    Concatenating each level over chunks in yield order is row-identical to
+    ``list_cliques``; peak live memory is one chunk's expansion instead of
+    the whole graph's.  ``start``/``stop`` restrict the walk to the seed range
+    [start, stop), chunk boundaries anchored at ``start``, as in the
+    reference.
+    """
+    chunk_size = max(1, int(chunk_size))
+    stop = dg.n if stop is None else min(int(stop), dg.n)
+    dev = dg.adj.device
+    for s0 in range(int(start), stop, chunk_size):
+        seeds = torch.arange(s0, min(s0 + chunk_size, stop), dtype=INT,
+                             device=dev)
+        levels, peak = expand_levels_metered(dg, seeds, ks)
+        yield s0, levels, peak
+
+
+def count_cliques(g: Graph, k: int, rank: Optional[torch.Tensor] = None
+                  ) -> int:
+    """Count k-cliques (the last level's rows are never materialized)."""
+    if k == 1:
+        return g.n
+    if k == 2:
+        return g.m
+    dg = orient(g, degree_rank(g) if rank is None else rank)
+    cand, ncand = dg.adj, dg.outdeg
+    for _ in range(2, k):
+        pairs = _pairs(cand, ncand)
+        if pairs is None:
+            return 0
+        rep, c, _ = pairs
+        cand, ncand, _ = _next_candidates(cand, rep, c, dg.adj, dg.outdeg)
+    return int(ncand.sum(dtype=torch.int64))
 
 
 def lexsort_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -137,6 +236,21 @@ def _lexsort_keys(keys) -> torch.Tensor:
     for key in keys:
         order = order[torch.argsort(key[order], stable=True)]
     return order
+
+
+def unique_rows(rows: torch.Tensor):
+    """(unique_sorted_rows, inverse_ids), as the reference's."""
+    if rows.shape[0] == 0:
+        return rows, torch.zeros((0,), dtype=INT, device=rows.device)
+    order = lexsort_rows(rows)
+    srows = rows[order]
+    first = torch.ones((int(rows.shape[0]),), dtype=torch.bool,
+                       device=rows.device)
+    first[1:] = (srows[1:] != srows[:-1]).any(dim=1)
+    ids_sorted = (torch.cumsum(first, 0) - 1).to(INT)
+    inverse = torch.empty_like(ids_sorted)
+    inverse[order] = ids_sorted
+    return srows[first], inverse
 
 
 def sort_join(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Seeded graph generators (numpy), counterpart of ``repro.graph.generators``.
 
-The golden-fixture suite is a copy of the reference's, so the port's tests
-re-derive the same graphs from the same seeds.  ``community_power_law`` is
-the port's own: a vectorized generator of ~10^6-vertex graphs with many
-triangles, used by ``chip_smoke.py``.
+The golden-fixture suite and ``barabasi_albert`` are copies of the
+reference's, so the port's tests re-derive the same graphs from the same
+seeds.  ``community_power_law`` is the port's own: a vectorized generator
+of ~10^6-vertex graphs with many triangles, used by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,31 @@ def erdos_renyi(n: int, p: float, seed: int = 0,
     mask = rng.random(iu[0].shape[0]) < p
     edges = np.stack([iu[0][mask], iu[1][mask]], axis=1)
     return make_graph(n, edges, device)
+
+
+def barabasi_albert(n: int, k: int, seed: int = 0,
+                    device: DeviceLike = None) -> Graph:
+    """Preferential attachment: power-law degrees (high clique counts).
+
+    The reference's generator, draw for draw: ``rng.choice`` over the
+    endpoint list makes the same draws whether the list is a Python list
+    or a numpy prefix, so the list lives in a preallocated array and is
+    not converted anew for every vertex (ba4k in ~0.1 s instead of ~9 s).
+    """
+    rng = np.random.default_rng(seed)
+    repeated = np.empty(k + 2 * k * max(n - k, 0), dtype=np.int64)
+    repeated[:k] = np.arange(k)
+    size = k
+    edges = []
+    for v in range(k, n):
+        chosen = rng.choice(repeated[:size], size=min(k, size),
+                            replace=False)
+        for t in set(int(c) for c in chosen):
+            edges.append((v, t))
+            repeated[size:size + 2] = (t, v)
+            size += 2
+    return make_graph(n, np.asarray(edges, dtype=np.int64).reshape(-1, 2),
+                      device)
 
 
 def planted_cliques(n: int, clique_sizes, p_background: float = 0.01,

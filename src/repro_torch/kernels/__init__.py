@@ -7,7 +7,8 @@ through the kernels.
 """
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"peel_round": 0, "segment_sum": 0}
+launch_counts: Dict[str, int] = {"peel_round": 0, "segment_sum": 0,
+                                 "tricount": 0}
 
 
 def reset_launch_counts() -> None:

@@ -33,6 +33,7 @@ SIGNATURES = {
                          _I, _P],
     "repro_segment_sum_i32": [_P, _P, _LL, _I, _I, _P, _P],
     "repro_segment_sum_f32": [_P, _P, _LL, _I, _I, _P, _P],
+    "repro_tricount": [_P, _LL, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -1,16 +1,31 @@
 """Plain-torch oracles of the port's kernels (counterpart of
 ``repro.kernels.ref``).
 
-Same contracts as the reference's ``peel_round_ref``/``segment_sum_ref``, so
-the tests feed both the same numpy inputs and demand equal outputs.  The
-kernel wrappers in ``peel_round.py``/``segment_sum.py`` run these on CPU
-tensors, and ``chip_smoke.py`` holds the CUDA kernels against them.
+Same contracts as the reference's ``peel_round_ref``/``segment_sum_ref``/
+``tricount_*_ref``, so the tests feed both the same numpy inputs and demand
+equal outputs.  The kernel wrappers in ``peel_round.py``/``segment_sum.py``/
+``tricount.py`` run these on CPU tensors, and ``chip_smoke.py`` holds the
+CUDA kernels against them.
 """
 from __future__ import annotations
 
 import torch
 
 INT = torch.int32
+
+
+def tricount_per_edge_ref(adj: torch.Tensor) -> torch.Tensor:
+    """(A @ A) ⊙ A: per-pair common-neighbor counts on the edges."""
+    return (adj @ adj) * adj
+
+
+def triangle_count_ref(adj: torch.Tensor) -> torch.Tensor:
+    return torch.sum(tricount_per_edge_ref(adj)) / 6.0
+
+
+def tricount_oriented_ref(adj: torch.Tensor) -> torch.Tensor:
+    """(D @ Dᵀ) ⊙ D: per-DAG-edge common-out-neighbor counts."""
+    return (adj @ adj.T) * adj
 
 
 def segment_sum_ref(data: torch.Tensor, ids: torch.Tensor,

@@ -91,7 +91,7 @@ def test_decompose_matches_reference(name):
     ({"backend": "gather"}, "not yet ported"),
     ({"backend": "sharded"}, "not yet ported"),
     ({"hierarchy": "replay"}, "not yet ported"),
-    ({"build": "chunked"}, "not yet ported"),
+    ({"build": "sharded"}, "not yet ported"),
     ({"backend": "tpu"}, "expected one of"),
     ({"method": "approx", "delta": 0.0}, "delta > 0"),
     ({"r": 3, "s": 3}, "1 <= r < s"),

@@ -1,4 +1,5 @@
-"""The CUDA kernels vs their plain-torch versions, on a card.
+"""The CUDA kernels vs their plain-torch versions, on a card, and the
+chunked build on the card vs the CPU.
 
 Marked ``cuda``: without a card each test skips (decided inside the
 fixture, so every pytest worker collects the same tests).  Run on the card
@@ -11,10 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.incidence import build_problem
+from repro_torch.graph.generators import barabasi_albert
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.peel_round import fused_peel_round, \
     peel_round_plain
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+from repro_torch.kernels.tricount import (tricount_oriented,
+                                          tricount_oriented_plain,
+                                          tricount_per_edge,
+                                          tricount_per_edge_plain)
 
 
 @pytest.fixture
@@ -73,3 +80,40 @@ def test_segment_sum_kernel_on_card(cuda_device):
             assert launch_counts["segment_sum"] == before + 1
             torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tricount_kernel_on_card(cuda_device):
+    """Both operand layouts at ragged n, bit for bit (0/1 operands make the
+    int8 product exact); a value other than 0/1 raises."""
+    rng = np.random.default_rng(2)
+    for n in (1, 127, 130, 257, 1000):
+        a = (rng.random((n, n)) < 0.2).astype(np.float32)  # not symmetric
+        np.fill_diagonal(a, 0.0)
+        cpu = t(a)
+        for kernel, plain in ((tricount_oriented, tricount_oriented_plain),
+                              (tricount_per_edge, tricount_per_edge_plain)):
+            before = launch_counts["tricount"]
+            got = kernel(cpu.to(cuda_device))
+            torch.cuda.synchronize()
+            assert launch_counts["tricount"] == before + 1
+            assert torch.equal(got.cpu(), plain(cpu)), (n, kernel.__name__)
+    with pytest.raises(ValueError, match="other than 0 and 1"):
+        tricount_oriented(torch.full((5, 5), 2.0, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_chunked_build_on_card(cuda_device):
+    """The dense fast path (one tricount launch) and the sparse path on the
+    card equal the CPU build array for array."""
+    g = barabasi_albert(300, 5, seed=3, device="cpu")
+    want = build_problem(g, 2, 3, device="cpu")
+    for fastpath in (True, False):
+        before = launch_counts["tricount"]
+        got = build_problem(g, 2, 3, build="chunked", fastpath=fastpath,
+                            chunk_size=None if fastpath else 17,
+                            device=cuda_device)
+        assert launch_counts["tricount"] == before + int(fastpath)
+        assert got.build_stats["fastpath"] == fastpath
+        for f in ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

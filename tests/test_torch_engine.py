@@ -153,3 +153,21 @@ def test_schedule_levels_match_reference(kind):
         tc, tl = ts.next_level(tc, dmin)
         assert int(jl) == tl
         assert tuple(int(x) for x in jc) == tc
+
+
+@pytest.mark.parametrize("delta", [0.1, 0.5, 1.0])
+@pytest.mark.parametrize("s_choose_r", [1, 3, 4, 6])
+def test_schedule_upper_matches_reference(s_choose_r, delta):
+    """The approx bucket bound at every bucket index 0..255 equals the
+    reference's float32 ``floor(Cb * (1+delta)**(ix+1))`` under XLA,
+    saturation at int32 max included."""
+    cb = s_choose_r + delta
+    ix = jnp.arange(256, dtype=jnp.int32)
+    want = np.asarray(jax.jit(
+        lambda i: jnp.floor(cb * (1.0 + delta) ** (i + 1.0)).astype(
+            jnp.int32))(ix))
+    ts = PeelSchedule(kind="approx", s_choose_r=s_choose_r, delta=delta)
+    got = np.array([ts.upper(i) for i in range(256)])
+    bad = np.nonzero(got != want)[0]
+    assert bad.size == 0, (f"first differing index {bad[0]}: port "
+                           f"{got[bad[0]]}, reference {want[bad[0]]}")
