@@ -32,7 +32,6 @@ package.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import subprocess
@@ -51,7 +50,6 @@ DENSE_N = 32_768     # vertices of the chunked build's dense fast-path graph
 DENSE_BUDGET = 24 << 30   # >= 5·n²·4 at DENSE_N: the dense (2,3) fast path
 SPARSE_BUDGET = 4 << 30   # far under 5·n²·4 at SMOKE_N: the sparse path
 RAGGED_N = (1, 127, 130, 257)
-FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0")
 
 
 def log(msg: str) -> None:
@@ -83,20 +81,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def problem_digest(problem) -> str:
-    """SHA-256 over the five incidence arrays + orientation, computed as
-    benchmarks/build_child.py computes the build fingerprint."""
-    h = hashlib.sha256()
-    for f in FIELDS:
-        a = np.ascontiguousarray(getattr(problem, f).cpu().numpy())
-        h.update(f.encode())
-        h.update(str(a.shape).encode())
-        h.update(str(a.dtype).encode())
-        h.update(a.tobytes())
-    h.update(problem.orientation.encode())
-    return h.hexdigest()
 
 
 def phase_tricount(g32k, seed: int):
@@ -138,17 +122,51 @@ def phase_tricount(g32k, seed: int):
         f"{n_tri} triangles): equal to plain")
     tc_ms = cuda_ms(lambda: tricount_oriented(dense), 5)
     tc_plain = cuda_ms(lambda: tricount_oriented_plain(dense), 1, 1)
-    tc_lib = cuda_ms(lambda: torch.mm(dense, dense.t()).mul_(dense), 1, 1)
-    bound_ms = 1e3 * max(16.0 * n * n / HBM_BYTES_PER_S,
-                         2.0 * n ** 3 / INT8_OPS_PER_S)
+
+    # library calls of the same function, f32 in and out: int8 tensor-core
+    # product with int32 sums (exact for 0/1, the kernel's own route), bf16
+    # with fp32 accumulation (exact while counts stay under 2^8 in its bf16
+    # output) and f32 on the SIMT units (TF32 is off)
+    def lib_int8():
+        d8 = dense.to(torch.int8)
+        return torch._int_mm(d8, d8.t()).to(torch.float32).mul_(dense)
+
+    def lib_bf16():
+        db = dense.to(torch.bfloat16)
+        return torch.mm(db, db.t()).to(torch.float32).mul_(dense)
+
+    def lib_f32():
+        return torch.mm(dense, dense.t()).mul_(dense)
+
+    want = tricount_oriented_plain(dense)
+    require(torch.equal(lib_int8(), want), "the int8 library product "
+            "differs from the plain version")
+    bf16_equal = bool(torch.equal(lib_bf16(), want))
+    del want
+    lib = {"int8 torch._int_mm": cuda_ms(lib_int8, 3, 1),
+           "bf16 torch.mm": cuda_ms(lib_bf16, 3, 1),
+           "f32 torch.mm": cuda_ms(lib_f32, 1, 1)}
+    log(f"[kernels] tricount library calls at n={n} (ms, each followed by "
+        f"the f32 mask): {lib}; bf16 equal to plain: {bf16_equal}")
+    # the least work of the function on this run's input: read D (f32)
+    # once and write the (n, n) f32 output once; one length-n dot product
+    # per output that the mask keeps, 2·n·nnz(D) operations at the int8
+    # tensor-core rate
+    nnz = int(dg.neighbors.shape[0])
+    bytes_ms = 1e3 * 8.0 * n * n / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2.0 * n * nnz / INT8_OPS_PER_S
+    log(f"[kernels] tricount bound at n={n}, nnz(D)={nnz}: bytes "
+        f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms")
     del dense
     torch.cuda.empty_cache()
     return {"name": "tricount", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tricount.cu",
             "replaces": "src/repro/kernels/tricount.py:67",
             "max_abs_err": err, "ms": tc_ms, "plain_ms": tc_plain,
-            "bound_ms": bound_ms, "bound_by": "operations",
-            "library_ms": tc_lib}
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib["int8 torch._int_mm"],
+            "library_call": "torch._int_mm(D8, D8.t()) * D"}
 
 
 def phase_kernels(problem, seed: int):
@@ -336,6 +354,7 @@ def main() -> int:
     from repro_torch import NucleusConfig, decompose
     from repro_torch.core import (build_problem, canonicalize_labels,
                                   dense_coreness, make_schedule)
+    from repro_torch.core.incidence import INCIDENCE_FIELDS, problem_digest
     from repro_torch.graph.generators import (barabasi_albert,
                                               community_power_law,
                                               golden_suite)
@@ -499,7 +518,7 @@ def main() -> int:
     deg = decompose(g32k, NucleusConfig())
     torch.cuda.synchronize()
     deg_s = time.perf_counter() - t
-    for f in FIELDS:
+    for f in INCIDENCE_FIELDS:
         require(torch.equal(getattr(dch.problem, f),
                             getattr(deg.problem, f)),
                 f"chunked dense-path {f} differs from the eager build")

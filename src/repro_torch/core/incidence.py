@@ -31,6 +31,7 @@ The sharded builder is ROADMAP Queue 1.13.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from math import comb
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -43,9 +44,12 @@ from ..graph.cliques import (expand_levels_metered, iter_clique_chunks,
 from ..graph.container import (Digraph, Graph, INT, _build_digraph,
                                csr_from_pairs, orient_arcs)
 from ..graph.orientation import approx_degeneracy_rank, degree_rank
-from ..kernels import ops
+from ..kernels import tricount
 
 BUILDS = ("eager", "chunked")
+# the arrays that define a built problem, in fingerprint order
+INCIDENCE_FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids",
+                    "deg0")
 # default memory budget for build="chunked" when the caller names neither a
 # budget nor a chunk size: the dense (2,3) fast path fits up to n ~ 3.6k
 DEFAULT_BUILD_BUDGET = 256 << 20
@@ -103,6 +107,21 @@ class NucleusProblem:
             mem_offsets=self.mem_offsets.to(device),
             mem_sids=self.mem_sids.to(device), deg0=self.deg0.to(device),
             orientation=self.orientation, build_stats=self.build_stats)
+
+
+def problem_digest(problem: NucleusProblem) -> str:
+    """SHA-256 build fingerprint over the five incidence arrays and the
+    orientation, computed as ``benchmarks/build_child.py`` computes the
+    reference's (so it matches ``tests/golden/build/*.json``)."""
+    h = hashlib.sha256()
+    for f in INCIDENCE_FIELDS:
+        a = np.ascontiguousarray(getattr(problem, f).cpu().numpy())
+        h.update(f.encode())
+        h.update(str(a.shape).encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
+    h.update(problem.orientation.encode())
+    return h.hexdigest()
 
 
 def pick_rank(g: Graph) -> Tuple[Digraph, str]:
@@ -284,13 +303,6 @@ def _assemble(g: Graph, r: int, s: int, r_rows: torch.Tensor,
         orientation=orientation, build_stats=stats)
 
 
-def _oriented_counts(dense: torch.Tensor) -> torch.Tensor:
-    """(D @ Dᵀ) ⊙ D for the (2,3) count pass: the tricount kernel on the
-    card, its plain version on the CPU.  Unlike the reference there is no
-    fallback: a CUDA tensor reaches the kernel or the call raises."""
-    return ops.tricount_oriented(dense)
-
-
 def _fastpath_ok(r: int, s: int, dg: Digraph, budget: int) -> bool:
     """The reference's rule, literally: the dense (2,3) count stage holds
     ~4 (n, n) f32 blocks plus one edge block of membership rows, and all
@@ -365,7 +377,9 @@ def _build_chunked_23_dense(g: Graph, dg: Digraph, orientation: str,
     n = dg.n
     src, nbrs, dense = dense_dag(dg)
     n_e = int(nbrs.shape[0])
-    counts_nn = _oriented_counts(dense)
+    # unlike the reference there is no fallback: a CUDA tensor reaches the
+    # kernel or the call raises
+    counts_nn = tricount.tricount_oriented(dense)
     ext = counts_nn[src, nbrs].to(torch.int64)
     del counts_nn
     n_s = int(ext.sum())

@@ -168,19 +168,18 @@ class CliqueLevels:
         return int(self.levels[t].shape[0])
 
 
-def list_cliques(g: Graph, ks, rank: Optional[torch.Tensor] = None,
-                 dg: Optional[Digraph] = None) -> CliqueLevels:
+def list_cliques(g: Graph, ks, dg: Optional[Digraph] = None
+                 ) -> CliqueLevels:
     """List all t-cliques for each t in `ks` (max(ks) drives the expansion),
-    on `g`'s device.  Without `dg` the graph is oriented by `rank`
-    (default: ``degree_rank``), as in the reference."""
+    on `g`'s device.  Without `dg` the graph is oriented by
+    ``degree_rank``, the reference's default."""
     if dg is None:
-        dg = orient(g, degree_rank(g) if rank is None else rank)
+        dg = orient(g, degree_rank(g))
     return CliqueLevels(expand_levels(
         dg, torch.arange(g.n, dtype=INT, device=g.device), ks))
 
 
-def iter_clique_chunks(dg: Digraph, ks, chunk_size: int, *,
-                       start: int = 0, stop: Optional[int] = None):
+def iter_clique_chunks(dg: Digraph, ks, chunk_size: int):
     """Chunked clique listing: expand `chunk_size` source vertices at a time.
 
     Yields ``(start, levels, peak_bytes)`` per contiguous seed range, with
@@ -188,28 +187,25 @@ def iter_clique_chunks(dg: Digraph, ks, chunk_size: int, *,
     account of that chunk's expansion (``expand_levels_metered``).
     Concatenating each level over chunks in yield order is row-identical to
     ``list_cliques``; peak live memory is one chunk's expansion instead of
-    the whole graph's.  ``start``/``stop`` restrict the walk to the seed range
-    [start, stop), chunk boundaries anchored at ``start``, as in the
-    reference.
+    the whole graph's.
     """
     chunk_size = max(1, int(chunk_size))
-    stop = dg.n if stop is None else min(int(stop), dg.n)
     dev = dg.adj.device
-    for s0 in range(int(start), stop, chunk_size):
-        seeds = torch.arange(s0, min(s0 + chunk_size, stop), dtype=INT,
+    for s0 in range(0, dg.n, chunk_size):
+        seeds = torch.arange(s0, min(s0 + chunk_size, dg.n), dtype=INT,
                              device=dev)
         levels, peak = expand_levels_metered(dg, seeds, ks)
         yield s0, levels, peak
 
 
-def count_cliques(g: Graph, k: int, rank: Optional[torch.Tensor] = None
-                  ) -> int:
-    """Count k-cliques (the last level's rows are never materialized)."""
+def count_cliques(g: Graph, k: int) -> int:
+    """Count k-cliques on the degree orientation (the last level's rows are
+    never materialized)."""
     if k == 1:
         return g.n
     if k == 2:
         return g.m
-    dg = orient(g, degree_rank(g) if rank is None else rank)
+    dg = orient(g, degree_rank(g))
     cand, ncand = dg.adj, dg.outdeg
     for _ in range(2, k):
         pairs = _pairs(cand, ncand)

@@ -11,11 +11,14 @@
 // on the MXU with an f32 VMEM accumulator carried across the sequential k
 // grid axis.
 //
-// Bound on Hopper: operations.  n^3 multiply-adds (2n^3 ops) against 16n^2
-// bytes (adj read as operand and as mask, out written); at n = 32768 that
-// is 7.0e13 ops / 1,979e12 int8 ops/s = 35.6 ms against 17.2 GB /
-// 3.35 TB/s = 5.1 ms.  0/1 operands are exact in int8, so the design takes
-// the int8 tensor-core rate:
+// Bound on Hopper: bytes.  The function reads adj once (4n^2 bytes) and
+// writes out once (4n^2 bytes): at n = 32768, 8.6 GB / 3.35 TB/s = 2.6 ms.
+// The mask keeps only nnz(adj) outputs, each one length-n dot product, so
+// the operations it needs are 2n*nnz(adj): 2.1e10 for the chunked build's
+// 32k graph (nnz 319,721), 0.01 ms at the int8 rate.  This design does not
+// use the mask's sparsity: it computes all n^2 dot products (2n^3 ops,
+// 35.6 ms at 1,979e12 int8 ops/s at n = 32768) on the tensor cores and
+// applies the mask in the epilogue.  0/1 operands are exact in int8:
 //
 //   1. stage: one pass reads the f32 matrix once and writes an int8 copy,
 //      zero-padded to a multiple of 128 on both axes, and raises a flag if
@@ -34,8 +37,10 @@
 //      padded output).  int32 sums of 0/1 products are exact for any n, and
 //      their f32 value is exact below 2^24.
 //
-// wgmma, TMA and a persistent tile loop are the next steps toward the
-// bound.  All flat indices are 64-bit: n^2 passes 2^31 at n = 46,341.
+// The way toward the bound is a masked formulation (a dot product only
+// where the mask is 1, e.g. over bitset rows, or CSR intersections), not a
+// faster dense product.  All flat indices are 64-bit: n^2 passes 2^31 at
+// n = 46,341.
 #include <cuda_runtime.h>
 
 namespace {

@@ -3,9 +3,10 @@
 Replaces ``repro/kernels/tricount.py::_masked_matmul`` (the TPU kernel) and
 its entry points ``tricount_per_edge``, ``tricount_oriented`` and
 ``triangle_count``.  The CUDA source is ``csrc/tricount.cu``; its header
-note says what bounds it on an H100 (operations: n^3 multiply-adds) and how
-the design answers that (int8 tensor-core products of a staged 0/1 copy,
-int32 sums, the f32 mask applied in the epilogue).
+note says what bounds the function on an H100 (bytes: one read of adj, one
+write of out; the masked product needs only 2n·nnz operations) and what the
+design does (a dense int8 tensor-core product of a staged 0/1 copy, int32
+sums, the f32 mask applied in the epilogue).
 
 The reference zero-pads n to its 128 tile and slices the result; the
 kernel masks the ragged edge itself, so the wrappers take any n and return

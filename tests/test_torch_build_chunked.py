@@ -20,7 +20,6 @@ helpers, the ba4k build fingerprint (port only), and the ``NucleusConfig``
 build-knob errors (same messages as the reference's).
 """
 import functools
-import hashlib
 import json
 import os
 
@@ -38,7 +37,9 @@ from repro.kernels import ref as jref, tricount as jtricount
 
 from repro_torch import ConfigError, NucleusConfig, decompose
 from repro_torch.core import canonicalize_labels
-from repro_torch.core.incidence import build_problem, pick_rank
+from repro_torch.core.incidence import (INCIDENCE_FIELDS as FIELDS,
+                                       build_problem, pick_rank,
+                                       problem_digest)
 from repro_torch.graph import degree_rank, generators as tgen, orient
 from repro_torch.graph.cliques import (count_cliques, iter_clique_chunks,
                                        list_cliques, unique_rows)
@@ -47,7 +48,6 @@ from repro_torch.kernels import ops, tricount
 pytestmark = pytest.mark.fast
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0")
 STATS = ("build", "chunk_size", "n_chunks", "memory_budget_bytes",
          "fastpath")
 # the graphs of tests/test_build_chunked.py, as (generator, args)
@@ -218,20 +218,6 @@ def test_clique_helpers_match_reference():
     tu, tinv = unique_rows(torch.from_numpy(rows))
     np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
-
-
-def problem_digest(problem):
-    """SHA-256 over the five arrays + orientation, as
-    benchmarks/build_child.py computes the build fingerprint."""
-    h = hashlib.sha256()
-    for f in FIELDS:
-        a = np.ascontiguousarray(getattr(problem, f).numpy())
-        h.update(f.encode())
-        h.update(str(a.shape).encode())
-        h.update(str(a.dtype).encode())
-        h.update(a.tobytes())
-    h.update(problem.orientation.encode())
-    return h.hexdigest()
 
 
 def test_ba4k_build_fingerprint():
