@@ -5,7 +5,9 @@ its defaults ((2,3), exact, dense, fused hierarchy, eager build), on a seeded
 graph of about a million vertices, ten million edges and ten million
 triangles, then the memory-bounded chunked build on the card: its dense
 (2,3) fast path on a 32,768-vertex graph and its sparse seed-chunked path on
-the million-vertex graph.  Every kernel of those paths is checked against
+the million-vertex graph, then LM inference of minicpm-2b at full width
+(random seeded weights): a 32,768-token prefill through the flash-attention
+kernel and a decode server.  Every kernel of those paths is checked against
 its plain-torch version on the card.  Phases (any failure ends the run with
 a non-zero exit):
 
@@ -23,7 +25,16 @@ a non-zero exit):
   6. card vs CPU on a ~20k-vertex graph (exact and approx) and the golden
      fixtures of tests/golden on the card, eager and chunked (fast and
      sparse);
-  7. a JSON line of per-kernel numbers, the card's name and power limit,
+  7. LM inference: flash attention vs its plain twin at the model's head
+     shapes (minicpm-2b, minitron-4b's GQA, stablelm-12b's head dim 160,
+     ragged, f32, non-causal, Sq < Sk) with its times at the prefill shape;
+     ``lm_prefill_step`` of minicpm-2b at full width, B = 1, S = 32,768
+     (one flash launch per layer); the card's ``forward`` vs the CPU's at
+     full width with 2 layers in f32; ``serve_lm`` of the minicpm-2b and
+     minitron-4b smoke configs on the card and the CPU (equal greedy
+     tokens); ``serve_lm`` of minicpm-2b at full width on the card (decode
+     runs the online scan: no flash launch);
+  8. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -44,12 +55,27 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core rate (data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 SMOKE_N = 1_000_000  # vertices of the smoke graph
 SMALL_N = 20_000     # vertices of the card-vs-CPU graph
 DENSE_N = 32_768     # vertices of the chunked build's dense fast-path graph
 DENSE_BUDGET = 24 << 30   # >= 5·n²·4 at DENSE_N: the dense (2,3) fast path
 SPARSE_BUDGET = 4 << 30   # far under 5·n²·4 at SMOKE_N: the sparse path
 RAGGED_N = (1, 127, 130, 257)
+LM_ARCH = "minicpm-2b"   # the LM path's model, at its published width
+PREFILL_S = 32_768       # prefill_32k's sequence (its global batch 32 -> 1)
+PLAIN_S = 4_096          # longest S at which the plain twin's f32 scores fit
+CPU_CHECK_S = 256        # card-vs-CPU forward: full width, 2 layers, f32
+# flash attention vs its plain twin: (B, H, Hkv, Sq, Sk, D, causal, dtype)
+FLASH_CASES = (
+    (1, 2, 2, 96, 96, 64, True, torch.bfloat16),          # ragged
+    (1, 36, 36, PLAIN_S, PLAIN_S, 64, True, torch.bfloat16),   # minicpm-2b
+    (1, 24, 8, PLAIN_S, PLAIN_S, 128, True, torch.bfloat16),   # minitron-4b
+    (1, 32, 8, 2048, 2048, 160, True, torch.bfloat16),    # stablelm-12b
+    (1, 36, 36, 1000, 1000, 64, True, torch.float32),     # f32
+    (1, 8, 8, 1000, 1000, 128, False, torch.bfloat16),    # non-causal
+    (1, 24, 8, 700, 2000, 128, True, torch.bfloat16),     # Sq < Sk
+)
 
 
 def log(msg: str) -> None:
@@ -336,6 +362,222 @@ def paired_build_s(g, budget: int):
     return out
 
 
+def flash_inputs(gen, B, H, Hkv, Sq, Sk, D, dtype):
+    """q, k, v as the model hands them to the kernel: (B, S, H, D) tensors
+    viewed as (B, H, S, D)."""
+    def make(S, heads):
+        return torch.randn((B, S, heads, D), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype).transpose(1, 2)
+    return make(Sq, H), make(Sk, Hkv), make(Sk, Hkv)
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def profile_decode(params, cfg, steps: int = 8) -> None:
+    """Where a full-width decode step's time goes: `steps` warm steps of
+    4 slots timed on the host clock (each ending in a sync), then one step
+    traced: its device time, kernel launches and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import lm_decode_step
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, 4, steps + 2, device="cuda")
+    tok = torch.zeros((4, 1), dtype=torch.int64, device="cuda")
+    n, walls = 0, []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxt, cache, n = lm_decode_step(params, tok, cache, n, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        tok = nxt[:, None]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lm_decode_step(params, tok, cache, n, cfg)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    wall_ms = 1e3 * float(np.median(walls[1:]))
+    log(f"[lm] decode step, full width, 4 slots: wall {wall_ms:.3f} ms "
+        f"(median of {steps - 1} warm steps; first {1e3 * walls[0]:.1f} "
+        f"ms), traced device time {busy_ms:.3f} ms in {n_kernels} kernels"
+        f" = {100 * busy_ms / wall_ms:.1f}% busy")
+
+
+def phase_lm(seed: int):
+    """Phase 7: flash attention vs its plain twin and its times, then the
+    LM path of minicpm-2b: full-width prefill, card vs CPU, serving."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import lm_prefill_step
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    err = 0.0
+    for B, H, Hkv, Sq, Sk, D, causal, dt in FLASH_CASES:
+        q, k, v = flash_inputs(gen, B, H, Hkv, Sq, Sk, D, dt)
+        got = flash_attention(q, k, v, causal).float()
+        want = flash_attention_plain(q, k, v, causal).float()
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        # bf16: the bar of tests/test_kernels.py (the bf16 output's ulp near
+        # 2 is 1.6e-2); f32: 2e-5, sums in another order than cuBLAS's
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        require(torch.allclose(got, want, rtol=tol, atol=tol),
+                f"flash_attention differs from its plain twin at "
+                f"{(B, H, Hkv, Sq, Sk, D, causal, dt)}: max abs err {e}")
+        log(f"[lm] flash_attention B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} "
+            f"D={D} causal={causal} {str(dt)[6:]}: max abs err {e:.3g} "
+            f"(tol {tol})")
+        err = max(err, e)
+        del got, want, q, k, v
+    torch.cuda.empty_cache()
+
+    # times: the kernel and SDPA at the prefill shape, the plain twin at
+    # PLAIN_S (its f32 scores at PREFILL_S alone would take 155 GB)
+    H, D = 36, 64
+    q, k, v = flash_inputs(gen, 1, H, H, PLAIN_S, PLAIN_S, D, torch.bfloat16)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, True), 3, 1)
+    ms_plain_s = cuda_ms(lambda: flash_attention(q, k, v, True), 10)
+    q, k, v = flash_inputs(gen, 1, H, H, PREFILL_S, PREFILL_S, D,
+                           torch.bfloat16)
+    fa_ms = cuda_ms(lambda: flash_attention(q, k, v, True), 10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 10)
+    got, want = flash_attention(q, k, v, True), sdpa(q, k, v, is_causal=True)
+    lib_err = float((got.float() - want.float()).abs().max())
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    S = PREFILL_S
+    ops_ms = 1e3 * 4.0 * D * H * S * (S + 1) / 2 / BF16_FLOPS_PER_S
+    bytes_ms = 1e3 * 4.0 * S * H * D * 2 / HBM_BYTES_PER_S
+    log(f"[lm] flash_attention (1, {H}, {S}, {D}) bf16 causal: kernel "
+        f"{fa_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max abs diff {lib_err:.3g}),"
+        f" bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
+        f"bytes {bytes_ms:.4f}); at S={PLAIN_S}: kernel {ms_plain_s:.4f} ms,"
+        f" plain {plain_ms:.4f} ms")
+
+    # the main path: lm_prefill_step at full width, B = 1, S = 32,768
+    cfg = get_arch(LM_ARCH).make_config()
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    toks = torch.randint(0, cfg.vocab, (1, PREFILL_S), generator=gen,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    nxt = lm_prefill_step(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(prefill_counts["flash_attention"] == cfg.n_layers,
+            f"prefill launched flash attention "
+            f"{prefill_counts['flash_attention']} times, not n_layers="
+            f"{cfg.n_layers}")
+    # again, split as lm_prefill_step is, to read the last logits
+    t = time.perf_counter()
+    last = T.head(params, T.trunk(params, toks, cfg)[:, -1], cfg)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t
+    require(tuple(last.shape) == (1, cfg.vocab) and
+            bool(torch.isfinite(last).all()), "prefill logits not finite")
+    require(torch.equal(torch.argmax(last, dim=-1), nxt),
+            "the prefill's argmax differs between two runs")
+    n_params = cfg.param_count()
+    log(f"[lm] {LM_ARCH} prefill B=1 S={PREFILL_S}: {n_params} params "
+        f"(bf16, init {init_s:.2f} s), prefill {prefill_s:.3f} s (again "
+        f"{prefill2_s:.3f} s), peak {peak_gb:.2f} GB, next token "
+        f"{int(nxt)}, launches={prefill_counts}")
+
+    # full-width serving on the card: decode runs the online scan
+    reset_launch_counts()
+    t = time.perf_counter()
+    served = serve_lm(LM_ARCH, n_requests=8, batch_slots=4, smoke=False,
+                      params=params, device="cuda")
+    serve_s = time.perf_counter() - t
+    serve_counts = dict(launch_counts)
+    require(serve_counts["flash_attention"] == 0,
+            "flash attention launched during decode")
+    require(sorted(served) == list(range(8)) and all(
+        x.shape == (24,) and ((x >= 0) & (x < cfg.vocab)).all()
+        for x in served.values()), "full-width serving output malformed")
+    log(f"[lm] serve_lm({LM_ARCH!r}, 8 requests, 4 slots, full width): "
+        f"{serve_s:.2f} s, launches={serve_counts}")
+    profile_decode(params, cfg)
+    del params, last, toks
+    torch.cuda.empty_cache()
+
+    # card vs CPU: full width, 2 layers, f32 (TF32 is off since phase 1)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    cpu_params = T.init_params(cfg2, generator=torch.Generator().manual_seed(
+        seed), device="cpu")
+    toks = torch.randint(0, cfg2.vocab, (1, CPU_CHECK_S),
+                         generator=torch.Generator().manual_seed(seed))
+    t = time.perf_counter()
+    want = T.forward(cpu_params, toks, cfg2)
+    cpu_s = time.perf_counter() - t
+    reset_launch_counts()
+    got = T.forward(to_device(cpu_params, "cuda"), toks.cuda(), cfg2).cpu()
+    require(launch_counts["flash_attention"] == cfg2.n_layers,
+            "the card's forward did not run the kernel once per layer")
+    e = float((got - want).abs().max())
+    # f32 products of length 2304..5760 summed in another order by cuBLAS
+    # and the CPU, through two layers: ~1e-5 on logits of order 1
+    require(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
+            f"card forward differs from CPU forward: max abs err {e}")
+    log(f"[lm] forward {LM_ARCH} full width, 2 layers, f32, S="
+        f"{CPU_CHECK_S}: card == CPU (max abs err {e:.3g}, rtol/atol 1e-3;"
+        f" CPU {cpu_s:.2f} s)")
+    del cpu_params, got, want
+
+    # the smoke configs' serving, card vs CPU, with the same weights
+    for arch in ("minicpm-2b", "minitron-4b"):
+        scfg = get_arch(arch).make_smoke_config()
+        sp = T.init_params(scfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        reset_launch_counts()
+        on_card = serve_lm(arch, params=to_device(sp, "cuda"),
+                           device="cuda", quiet=True)
+        on_cpu = serve_lm(arch, params=sp, device="cpu", quiet=True)
+        require(launch_counts["flash_attention"] == 0,
+                "flash attention launched during smoke decode")
+        require(sorted(on_card) == sorted(on_cpu) and all(
+            np.array_equal(on_card[r], on_cpu[r]) for r in on_cpu),
+            f"serve_lm({arch!r}) smoke: card tokens differ from the CPU's")
+        log(f"[lm] serve_lm({arch!r}) smoke: {len(on_cpu)} requests, equal "
+            f"greedy tokens on card and CPU")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "launches": prefill_counts["flash_attention"],
+            "max_abs_err": err, "ms": fa_ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms,
+            "library_call": "scaled_dot_product_attention(is_causal=True)",
+            "shape": f"(1, {H}, {PREFILL_S}, {D}) bf16 causal",
+            "plain_at": f"(1, {H}, {PLAIN_S}, {D}): kernel {ms_plain_s} ms",
+            "path": f"lm_prefill_step({LM_ARCH}, B=1, S={PREFILL_S})"}
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -620,7 +862,11 @@ def main() -> int:
         f"partitions equal on the card")
     phase_t = log_phase(6, phase_t)
 
-    # -- phase 7: the result lines ------------------------------------------
+    # -- phase 7: LM inference ------------------------------------------------
+    rows.append(phase_lm(args.seed))
+    phase_t = log_phase(7, phase_t)
+
+    # -- phase 8: the result lines ------------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

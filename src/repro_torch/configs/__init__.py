@@ -1,0 +1,12 @@
+"""Architecture configs (counterpart of ``repro.configs``): one module per
+ported arch.
+
+`get_arch(id)` returns the registered ArchSpec; importing this package
+registers the three dense LM archs.  The MoE and MLA archs
+(moonshot-v1-16b-a3b, deepseek-v2-lite-16b), the GNN and recsys archs and
+``nucleus`` are not yet ported.
+"""
+from .base import ArchSpec, ShapeCell, get_arch, all_archs, pad_vocab
+from . import stablelm_12b, minicpm_2b, minitron_4b
+
+ALL_ARCH_IDS = tuple(sorted(all_archs()))

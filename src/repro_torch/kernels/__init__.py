@@ -8,7 +8,7 @@ through the kernels.
 from typing import Dict
 
 launch_counts: Dict[str, int] = {"peel_round": 0, "segment_sum": 0,
-                                 "tricount": 0}
+                                 "tricount": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:

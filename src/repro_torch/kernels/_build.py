@@ -34,6 +34,7 @@ SIGNATURES = {
     "repro_segment_sum_i32": [_P, _P, _LL, _I, _I, _P, _P],
     "repro_segment_sum_f32": [_P, _P, _LL, _I, _I, _P, _P],
     "repro_tricount": [_P, _LL, _I, _P, _P, _P, _P, _P],
+    "repro_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_LL] * 12 + [_P],
 }
 
 

@@ -2,12 +2,15 @@
 ``repro.kernels.ref``).
 
 Same contracts as the reference's ``peel_round_ref``/``segment_sum_ref``/
-``tricount_*_ref``, so the tests feed both the same numpy inputs and demand
-equal outputs.  The kernel wrappers in ``peel_round.py``/``segment_sum.py``/
-``tricount.py`` run these on CPU tensors, and ``chip_smoke.py`` holds the
-CUDA kernels against them.
+``tricount_*_ref``/``attention_ref``, so the tests feed both the same numpy
+inputs and demand equal outputs (allclose for attention).  The kernel
+wrappers in ``peel_round.py``/``segment_sum.py``/``tricount.py``/
+``flash_attention.py`` run these on CPU tensors, and ``chip_smoke.py`` holds
+the CUDA kernels against them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +29,24 @@ def triangle_count_ref(adj: torch.Tensor) -> torch.Tensor:
 def tricount_oriented_ref(adj: torch.Tensor) -> torch.Tensor:
     """(D @ Dᵀ) ⊙ D: per-DAG-edge common-out-neighbor counts."""
     return (adj @ adj.T) * adj
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Materialized-softmax attention. q/k/v: (B, H, S, D).
+
+    Scores in float32, a ``-inf`` causal mask by index (key index <= query
+    index, also when Sq != Sk), softmax, then the cast to ``q.dtype``.
+    """
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        mask = (torch.arange(Sk, device=q.device)[None, :] <=
+                torch.arange(Sq, device=q.device)[:, None])
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def segment_sum_ref(data: torch.Tensor, ids: torch.Tensor,

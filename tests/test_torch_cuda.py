@@ -15,6 +15,8 @@ import torch
 from repro_torch.core.incidence import build_problem
 from repro_torch.graph.generators import barabasi_albert
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.peel_round import fused_peel_round, \
     peel_round_plain
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
@@ -117,3 +119,40 @@ def test_chunked_build_on_card(cuda_device):
         assert got.build_stats["fastpath"] == fastpath
         for f in ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_on_card(cuda_device):
+    """The kernel vs its plain twin in the working type: ragged Sq/Sk, GQA,
+    each supported head dim, causal and not, Sq < Sk, and (B, S, H, D)
+    tensors read through transposed views.  bf16 at 2e-2 (the bf16 bar of
+    tests/test_kernels.py); float32 at 2e-5 (f32 sums in another order)."""
+    rng = np.random.default_rng(3)
+    cases = [  # B, H, Hkv, Sq, Sk, D, causal, dtype
+        (1, 2, 2, 96, 96, 64, True, torch.bfloat16),
+        (2, 4, 2, 130, 130, 128, True, torch.bfloat16),
+        (1, 4, 1, 77, 77, 160, True, torch.bfloat16),
+        (1, 3, 3, 40, 200, 64, True, torch.bfloat16),
+        (2, 2, 1, 65, 129, 128, False, torch.bfloat16),
+        (1, 2, 2, 100, 100, 64, True, torch.float32),
+        (1, 4, 2, 33, 70, 160, False, torch.float32),
+        (1, 2, 2, 1, 1, 64, True, torch.bfloat16),
+    ]
+    for B, H, Hkv, Sq, Sk, D, causal, dt in cases:
+        q = t(rng.standard_normal((B, Sq, H, D), dtype=np.float32)).to(dt)
+        k = t(rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32)).to(dt)
+        v = t(rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32)).to(dt)
+        args = [x.to(cuda_device).transpose(1, 2) for x in (q, k, v)]
+        before = launch_counts["flash_attention"]
+        got = flash_attention(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert launch_counts["flash_attention"] == before + 1
+        assert got.stride() == args[0].stride()
+        want = flash_attention_plain(*args, causal=causal)
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        case = (B, H, Hkv, Sq, Sk, D, causal, dt)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{case}: {m}")
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 1, 8, 32), device=cuda_device)
+        flash_attention(x, x, x)

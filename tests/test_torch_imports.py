@@ -37,6 +37,13 @@ def test_port_sources_found():
     files = port_files()
     assert len(files) > 15
     assert any(f.endswith("engine.py") for f in files)
+    rel = {os.path.relpath(f, os.path.join(ROOT, "src", "repro_torch"))
+           for f in files}
+    for mod in ("models/transformer.py", "configs/minicpm_2b.py",
+                "configs/minitron_4b.py", "configs/stablelm_12b.py",
+                "launch/serve.py", "launch/steps.py",
+                "kernels/flash_attention.py"):
+        assert mod in rel, mod
 
 
 @pytest.mark.parametrize("path", port_files(),
@@ -49,8 +56,11 @@ def test_no_jax_or_reference_import(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
             "peel_round, repro_torch.kernels.segment_sum, repro_torch.graph."
-            "generators; bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+            "generators, repro_torch.kernels.flash_attention, "
+            "repro_torch.models, repro_torch.configs, repro_torch.launch, "
+            "repro_torch.launch.serve; bad = [m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
+            "assert not bad")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
