@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -162,24 +162,41 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Scores and the P·V product sum in float32 from the inputs' values, and
     probabilities re-enter P·V in V's dtype, as in the reference.
     """
+    return _online_scan(q, k, v, _chunk_biases(q_pos, k_valid_len,
+                                               k.shape[1], causal, chunk))
+
+
+def _chunk_biases(q_pos: torch.Tensor, k_valid_len: torch.Tensor, Sk: int,
+                  causal: bool, chunk: int
+                  ) -> List[Tuple[int, int, torch.Tensor]]:
+    """online_attention's masks as additive biases, one (lo, hi, (B, Sq,
+    hi - lo)) per KV chunk.  They depend on positions only, so a decode
+    step builds them once for all its layers."""
+    out = []
+    for lo in range(0, Sk, chunk):
+        hi = min(lo + chunk, Sk)
+        kpos = torch.arange(lo, hi, device=q_pos.device)       # (n,)
+        mask = kpos[None, None, :] < k_valid_len[:, None, None]  # (B, 1, n)
+        if causal:
+            mask = mask & (kpos[None, None, :] <= q_pos[:, :, None])
+        out.append((lo, hi, torch.where(mask, 0.0, NEG)))    # (B, Sq, n)
+    return out
+
+
+def _online_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 biases: List[Tuple[int, int, torch.Tensor]]) -> torch.Tensor:
+    """online_attention's loop over the chunks of ``_chunk_biases``."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     G = H // Hkv
     scale = 1.0 / math.sqrt(D)
     # (B, Sq, Hkv, G, D) -> (B, Hkv, G, Sq, D)
     qt = q.reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
-    n_chunks = -(-Sk // chunk)
     dev = q.device
     m = torch.full((B, Hkv, G, Sq), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32, device=dev)
-    for c_idx in range(n_chunks):
-        lo, hi = c_idx * chunk, min((c_idx + 1) * chunk, Sk)
-        kpos = torch.arange(lo, hi, device=dev)                # (n,)
-        mask = kpos[None, None, :] < k_valid_len[:, None, None]  # (B, 1, n)
-        if causal:
-            mask = mask & (kpos[None, None, :] <= q_pos[:, :, None])
-        bias = torch.where(mask, 0.0, NEG)                     # (B, Sq, n)
+    for lo, hi, bias in biases:
         # the reference pads the last chunk with zero keys; they are
         # masked (past k_valid_len), so their probabilities are exactly 0
         kb, vb = k[:, lo:hi].float(), v[:, lo:hi]
@@ -208,13 +225,14 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 # layers
 # ---------------------------------------------------------------------------
 
-def _attn(x, params, cfg: TransformerConfig, positions, cache=None,
-          cache_len: Optional[int] = None):
+def _attn(x, params, cfg: TransformerConfig, rope, cache=None,
+          cache_len: Optional[int] = None, biases=None):
     """GQA/MHA self-attention. Returns (out, new_cache_kv).
 
-    With a cache, the new K/V rows are written into it in place at
-    ``cache_len`` (the reference returns an updated copy) and the step
-    attends over the whole cache through ``online_attention``.  Without
+    ``rope`` is ``rope_angles`` of the positions.  With a cache, the new K/V
+    rows are written into it in place at ``cache_len`` (the reference
+    returns an updated copy) and the step attends over the whole cache
+    through ``online_attention``'s scan with its chunk ``biases``.  Without
     one, the flash-attention kernel computes the same function.
     """
     B, S, _ = x.shape
@@ -222,9 +240,8 @@ def _attn(x, params, cfg: TransformerConfig, positions, cache=None,
     q = (x @ params["wq"]).reshape(B, S, H, D)
     k = (x @ params["wk"]).reshape(B, S, Hkv, D)
     v = (x @ params["wv"]).reshape(B, S, Hkv, D)
-    cos, sin = rope_angles(positions, D, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q = apply_rope(q, *rope)
+    k = apply_rope(k, *rope)
     if cache is None:
         # (B, S, H, D) viewed as (B, H, S, D): the kernel reads and writes
         # through strides, so neither transpose copies
@@ -233,24 +250,18 @@ def _attn(x, params, cfg: TransformerConfig, positions, cache=None,
         new_cache = None
     else:
         k_c, v_c = cache                                   # (B, Sc, Hkv, D)
-        off = int(cache_len)
-        if off + S > k_c.shape[1]:
-            raise ValueError(f"KV cache of {k_c.shape[1]} slots cannot take "
-                             f"{S} tokens at {off}")
-        k_c[:, off:off + S] = k
-        v_c[:, off:off + S] = v
-        valid = torch.full((B,), off + S, dtype=torch.int32, device=x.device)
-        out = online_attention(q, k_c, v_c, positions, valid, causal=True,
-                               chunk=cfg.attn_chunk)
+        k_c[:, cache_len:cache_len + S] = k
+        v_c[:, cache_len:cache_len + S] = v
+        out = _online_scan(q, k_c, v_c, biases)
         new_cache = (k_c, v_c)
     out = out.reshape(B, S, H * D) @ params["wo"]
     return out, new_cache
 
 
-def _layer(x, params, cfg: TransformerConfig, positions, cache=None,
-           cache_len: Optional[int] = None):
+def _layer(x, params, cfg: TransformerConfig, rope, cache=None,
+           cache_len: Optional[int] = None, biases=None):
     h, new_cache = _attn(rmsnorm(x, params["ln1"], cfg.norm_eps), params,
-                         cfg, positions, cache, cache_len)
+                         cfg, rope, cache, cache_len, biases)
     x = x + h
     z = rmsnorm(x, params["ln2"], cfg.norm_eps)
     y = swiglu(z, params["w1"], params["w2"], params["w3"])
@@ -351,8 +362,9 @@ def trunk(params: Dict[str, Any], tokens: torch.Tensor,
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params, i), cfg, positions)
+        x, _ = _layer(x, _layer_params(params, i), cfg, rope)
     return x
 
 
@@ -394,9 +406,17 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor, cache: Any,
     B, S = tokens.shape
     off = int(cache_len)
     x = params["embed"][tokens.long()]
+    k_c, v_c = cache                           # (L, B, Sc, Hkv, D)
+    if off + S > k_c.shape[2]:
+        raise ValueError(f"KV cache of {k_c.shape[2]} slots cannot take "
+                         f"{S} tokens at {off}")
     positions = off + torch.arange(S, device=x.device).expand(B, S)
-    k_c, v_c = cache
+    # rope and the chunk masks depend on positions only: once per step
+    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    valid = torch.full((B,), off + S, dtype=torch.int32, device=x.device)
+    biases = _chunk_biases(positions, valid, k_c.shape[2], True,
+                           cfg.attn_chunk)
     for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params, i), cfg, positions,
-                      cache=(k_c[i], v_c[i]), cache_len=off)
+        x, _ = _layer(x, _layer_params(params, i), cfg, rope,
+                      cache=(k_c[i], v_c[i]), cache_len=off, biases=biases)
     return head(params, x, cfg), cache, off + S
