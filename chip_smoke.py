@@ -11,10 +11,13 @@ kernel and a decode server.  Every kernel of those paths is checked against
 its plain-torch version on the card.  Phases (any failure ends the run with
 a non-zero exit):
 
-  1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc);
+  1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc),
+     with the registers, shared memory and spills ptxas reports for the
+     kernels redesigned for Hopper (flash attention, segment sum);
   2. each kernel vs its plain version, with times: the round kernels at the
-     smoke graph's plan, tricount at ragged small n and on the 32k graph's
-     oriented adjacency;
+     smoke graph's plan (the segment sum also through unaligned views and
+     on runs that cross many of its tiles), tricount at ragged small n and
+     on the 32k graph's oriented adjacency;
   3. the main path, with the megakernel's launch count == peel rounds;
   4. the segment-sum path (``fused_kernel=False``), bit-identical to phase 3;
   5. the chunked build: ``decompose(g32k, build="chunked", 24 GiB budget)``
@@ -27,9 +30,11 @@ a non-zero exit):
      sparse);
   7. LM inference: flash attention vs its plain twin at the model's head
      shapes (minicpm-2b, minitron-4b's GQA, stablelm-12b's head dim 160,
-     ragged, f32, non-causal, Sq < Sk) and at the prefill shape (the twin
-     in query-row slices), each beside a control with the scale 3% off
-     that the bar must reject, with its times at the prefill shape;
+     ragged, f32, non-causal, Sq < Sk, the wgmma kernel's block and tile
+     edges, B > 1) and at the prefill shape (the twin in query-row
+     slices), each beside a control with the scale 3% off that the bar
+     must reject, with its times at the prefill shape and at minitron-4b's
+     (1, 24, 8, 4096, 128);
      ``lm_prefill_step`` of minicpm-2b at full width, B = 1, S = 32,768
      (one flash launch per layer); the card's ``forward`` vs the CPU's at
      full width with 2 layers in f32; ``serve_lm`` of the minicpm-2b and
@@ -48,6 +53,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -78,7 +85,18 @@ FLASH_CASES = (
     (1, 36, 36, 1000, 1000, 64, True, torch.float32),     # f32
     (1, 8, 8, 1000, 1000, 128, False, torch.bfloat16),    # non-causal
     (1, 24, 8, 700, 2000, 128, True, torch.bfloat16),     # Sq < Sk
+    # the wgmma kernel's edges: blocks of 192 (D = 64) or 128 (D = 128)
+    # query rows, tiles of 128 keys, B > 1 with GQA
+    (1, 4, 4, 127, 127, 64, True, torch.bfloat16),
+    (1, 4, 4, 129, 129, 64, True, torch.bfloat16),
+    (1, 4, 2, 255, 255, 128, True, torch.bfloat16),
+    (1, 4, 4, 257, 257, 64, False, torch.bfloat16),
+    (3, 8, 2, 257, 257, 64, True, torch.bfloat16),
+    (2, 6, 3, 255, 255, 128, False, torch.bfloat16),
+    (1, 24, 8, 2048, 2048, 128, True, torch.bfloat16),
 )
+# minitron-4b's attention (GQA, D = 128), timed beside the prefill shape
+FLASH_D128 = (1, 24, 8, 4096, 128)
 # flash attention's bar: the largest ||got - want|| / ||want|| over output
 # rows (a row is one query's D values).  bf16: the output's rounding is
 # relative (half an ulp, 2^-9), so a bar relative to each row holds at every
@@ -87,6 +105,8 @@ FLASH_CASES = (
 # order than the twin's, far under the ~1e-3 of a bf16 or TF32 product.
 FLASH_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 CONTROL_SCALE = 1.03     # the control: q scaled, i.e. the softmax scale off
+# the sources redesigned for Hopper, whose ptxas summary phase 1 prints
+PTXAS_SOURCES = ("flash_attention.cu", "segment_sum.cu")
 
 
 def log(msg: str) -> None:
@@ -98,6 +118,39 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(logs) -> None:
+    """One line per kernel of PTXAS_SOURCES: registers, static shared memory
+    and spills, as ``nvcc -Xptxas -v`` reported them in this run's build
+    (names demangled by c++filt where it is installed)."""
+    for src in PTXAS_SOURCES:
+        text = logs.get(src)
+        if text is None:
+            log(f"[ptxas] {src}: no build log (library built earlier)")
+            continue
+        rows, name, spills = [], None, ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m and name:
+                rows.append((name, m.group(1), m.group(2), spills))
+                name = None
+        names = [r[0] for r in rows]
+        if shutil.which("c++filt") and names:
+            out = subprocess.run(["c++filt"], input="\n".join(names),
+                                 capture_output=True, text=True).stdout
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     for n in out.splitlines()]
+        for n, (_, regs, smem, spills) in zip(names, rows):
+            log(f"[ptxas] {src} {n}: {regs} registers, {smem} B static "
+                f"smem, {spills}")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -273,6 +326,24 @@ def phase_kernels(problem, seed: int):
         max_err = max(max_err, int((got - want).abs().max()) if n_r else 0)
         log(f"[kernels] segment_sum int32 d=1 dead_frac={frac}: equal to "
             f"plain")
+    # the flat-tile design's edges: views one row in (their pointers miss
+    # the 16-byte vector loads' alignment) at the real plan, and three
+    # segments over 200,000 rows (each run crosses many 4,096-row tiles)
+    one = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    for what, d_in, i_in, n in (
+            ("the plan through views one row in",
+             torch.cat([one, data])[1:], torch.cat([rids[:1], rids])[1:],
+             n_r),
+            ("3 segments over 200,000 rows",
+             torch.randint(-3, 4, (200_000, 1), generator=gen, device=dev,
+                           dtype=torch.int32),
+             torch.sort(torch.randint(0, 3, (200_000,), generator=gen,
+                                      device=dev, dtype=torch.int32)).values,
+             3)):
+        require(torch.equal(segment_sum(d_in, i_in, n),
+                            segment_sum_plain(d_in, i_in, n)),
+                f"segment_sum int32 differs from its plain version on {what}")
+        log(f"[kernels] segment_sum int32 on {what}: equal to plain")
     fdata = torch.rand((E, 4), generator=gen, device=dev)
     fgot = segment_sum(fdata, rids, n_r)
     fwant = segment_sum_plain(fdata, rids, n_r)
@@ -532,6 +603,23 @@ def phase_lm(seed: int):
         f"vs plain {lib_want:.3g}), bound {max(ops_ms, bytes_ms):.4f} ms "
         f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
 
+    # minitron-4b's attention (GQA, D = 128: the two-warpgroup variant),
+    # held to its twin in FLASH_CASES; here its times beside SDPA's
+    B, H2, Hkv2, S2, D2 = FLASH_D128
+    q, k, v = flash_inputs(gen, B, H2, Hkv2, S2, S2, D2, torch.bfloat16)
+    d128 = {"shape": f"{FLASH_D128[:3] + (S2, D2)} bf16 causal",
+            "ms": cuda_ms(lambda: flash_attention(q, k, v, True), 20),
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                               enable_gqa=True), 20)}
+    d128_ops = 1e3 * 4.0 * D2 * H2 * S2 * (S2 + 1) / 2 / BF16_FLOPS_PER_S
+    d128_bytes = 1e3 * 2.0 * S2 * D2 * 2 * (H2 + Hkv2) / HBM_BYTES_PER_S
+    d128["bound_ms"] = max(d128_ops, d128_bytes)
+    d128["bound_by"] = "operations" if d128_ops >= d128_bytes else "bytes"
+    del q, k, v
+    log(f"[lm] flash_attention {d128['shape']}: kernel {d128['ms']:.4f} ms, "
+        f"SDPA {d128['library_ms']:.4f} ms, bound {d128['bound_ms']:.4f} ms "
+        f"(operations {d128_ops:.4f}, bytes {d128_bytes:.4f})")
+
     # the main path: lm_prefill_step at full width, B = 1, S = 32,768
     cfg = get_arch(LM_ARCH).make_config()
     t = time.perf_counter()
@@ -639,6 +727,10 @@ def phase_lm(seed: int):
             "library_ms": lib_ms,
             "library_call": "scaled_dot_product_attention(is_causal=True)",
             "shape": f"(1, {H}, {PREFILL_S}, {D}) bf16 causal",
+            "routes": "bf16 D=64: wgmma/TMA, 3 consumer warpgroups; bf16 "
+                      "D=128: wgmma/TMA, 2; bf16 D=160 and f32: the first "
+                      "design (mma.sync m16n8k16 / FMA)",
+            "d128": d128,
             "path": f"lm_prefill_step({LM_ARCH}, B=1, S={PREFILL_S})"}
 
 
@@ -680,6 +772,7 @@ def main() -> int:
     log(f"[build] {os.path.relpath(lib, ROOT)} from "
         f"{[os.path.relpath(s, ROOT) for s in _build.sources()]} in "
         f"{time.perf_counter() - t:.2f} s")
+    ptxas_summary(_build.PTXAS_LOG)
     phase_t = log_phase(1, phase_t)
 
     # -- phase 2: the smoke graph, its plan, kernels vs plain -------------

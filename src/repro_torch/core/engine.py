@@ -417,8 +417,10 @@ def dense_coreness(problem: NucleusProblem, schedule: PeelSchedule, *,
             plan_rids, plan_sids = _scatter_plan(problem)
 
             def scatter(dead_now):
-                data = dead_now[plan_sids.long()].to(INT)[:, None]
-                return segment_sum(data, plan_rids, n_r)[:, 0]
+                # one n_s-long cast, then an int32 gather by the int32 plan:
+                # no E-long int64 index or bool pass per round
+                data = torch.index_select(dead_now.to(INT), 0, plan_sids)
+                return segment_sum(data[:, None], plan_rids, n_r)[:, 0]
     return run_peel_engine(problem.inc_rid, problem.deg0, schedule,
                            max_rounds=n_r + 2, scatter=scatter,
                            fused_round=fused_round, hierarchy=hierarchy,

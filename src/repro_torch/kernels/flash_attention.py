@@ -4,9 +4,12 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the TPU
 kernel) and, through ``ops.attention``, its padding wrapper.  The CUDA
 source is ``csrc/flash_attention.cu``; its header note says what bounds the
 function on an H100 (operations: 4·D flops per visible (query, key) pair)
-and what the design does about it (a block per 64 query rows looping over
-KV tiles with the running max, sum and accumulator in registers; causal
-blocks stop at the diagonal; bf16 products on ``mma.sync`` with f32 sums).
+and what the design does about it (bf16 at D = 64 and 128: a producer
+warpgroup streaming K/V tiles by TMA through an mbarrier ring, three (D =
+64) or two (D = 128) consumer warpgroups of 64 query rows on ``wgmma``,
+taking turns, with the running max, sum and accumulator in registers;
+causal blocks stop at the diagonal; D = 160 and float32 keep the first
+``mma.sync``/FMA design).
 
 Beyond the TPU kernel's contract, the kernel masks the ragged edge itself
 (any Sq and Sk, no padded copy), reads K and V of query head ``h`` from KV

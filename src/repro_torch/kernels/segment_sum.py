@@ -3,9 +3,10 @@
 Replaces ``repro/kernels/segment_sum.py::segment_sum_sorted`` (and its
 wrapper ``repro/kernels/ops.py::segment_sum``).  The CUDA source is
 ``csrc/segment_sum.cu``; its header note says what bounds it on an H100
-(memory: data and ids read once) and how the design answers that (a block
-per run of segments, found by binary search; a warp per segment; no
-atomics).  int32 data sums in int32, float32 in float32, for any width d.
+(memory: data and ids read once) and how the design answers that (flat
+tiles of consecutive rows, each thread summing the runs in its rows, a
+segmented scan joining runs across threads, the block holding a segment's
+first row writing it once; no atomics, no search).  int32 data sums in int32, float32 in float32, for any width d.
 The kernel takes the ids unpadded, so the reference's ``sorted_ids_plan``
 (tile padding, per-block chunk bound) has no counterpart.
 """

@@ -117,6 +117,27 @@ def test_gqa_grouping_matches_online_attention(H, Hkv):
     close(got, want, 2e-5)
 
 
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal", [
+    (1, 2, 2, 127, 127, True), (1, 2, 1, 129, 257, True),
+    (2, 4, 2, 255, 255, True), (1, 2, 2, 257, 129, False)])
+def test_flash_attention_tile_edges_match_reference(B, H, Hkv, Sq, Sk,
+                                                    causal):
+    """The wrapper (its plain version on CPU) vs the reference's oracle at
+    the CUDA kernel's block and tile edges (128 keys a tile; 192 or 128
+    query rows a block), with GQA, on (B, S, H, D) tensors viewed as
+    (B, H, S, D): the inputs tests/test_torch_cuda.py holds the kernel to."""
+    D = 64
+    (jq, jk, jv), (q, k, v) = inputs(5, (B, Sq, H, D), (B, Sk, Hkv, D),
+                                     "f32")
+    G = H // Hkv
+    want = jref.attention_ref(*(jnp.swapaxes(x, 1, 2) for x in (
+        jq, jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2))),
+        causal=causal)
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal)
+    close(got, want, 2e-5)
+
+
 def test_shape_and_dtype_errors():
     q = torch.zeros((1, 3, 8, 16))
     with pytest.raises(ValueError, match="multiple"):

@@ -168,3 +168,80 @@ def test_flash_attention_kernel_on_card(cuda_device):
     with pytest.raises(ValueError, match="head dim"):
         x = torch.zeros((1, 1, 8, 32), device=cuda_device)
         flash_attention(x, x, x)
+
+
+def segment_cases(rng):
+    """(name, ids, n_seg) at the flat-tile design's edges (tiles of 4,096
+    rows, 16 per thread): a segment over many tiles, power-law lengths like
+    the engine's plan, long gaps with ids starting above 0, nothing but the
+    pad id, and every E from 1 to 17 (the 16-row vector loads' tails)."""
+    lengths = np.minimum(rng.zipf(1.8, 3000), 900)
+    yield "three segments over 200,000 rows", np.sort(
+        rng.integers(0, 3, 200_000)), 3
+    yield "power-law lengths", np.repeat(
+        np.arange(lengths.size), lengths), lengths.size
+    gaps = np.cumsum(rng.integers(1, 3000, 400)) + 5000
+    yield "long gaps, ids from 5,000", np.sort(
+        rng.choice(gaps, 20_000)), int(gaps[-1]) + 7000
+    yield "all pad ids", np.full(9000, 700), 700
+    for E in range(1, 18):
+        yield f"E={E}", np.sort(rng.integers(0, 6, E)), 5
+
+
+@pytest.mark.cuda
+def test_segment_sum_edges_on_card(cuda_device):
+    """The flat-tile kernel vs its plain twin at its edges, int32 bit for bit
+    and float32 within 1e-5 relative (sums in another fixed order), also
+    through views one row in, whose pointers miss the vector loads'
+    16-byte alignment."""
+    rng = np.random.default_rng(4)
+    for name, ids, n_seg in segment_cases(rng):
+        ids = ids.astype(np.int32)
+        E = ids.size
+        for data in (rng.integers(-5, 6, (E + 1, 1)).astype(np.int32),
+                     rng.standard_normal((E + 1, 1)).astype(np.float32)):
+            ids1 = np.concatenate([ids[:1], ids])
+            for d_dev, i_dev, d_cpu, i_cpu in (
+                    (t(data[1:]).to(cuda_device), t(ids).to(cuda_device),
+                     t(data[1:]), t(ids)),
+                    (t(data).to(cuda_device)[1:], t(ids1).to(cuda_device)[1:],
+                     t(data)[1:], t(ids1)[1:])):
+                got = segment_sum(d_dev, i_dev, n_seg).cpu()
+                want = segment_sum_plain(d_cpu, i_cpu, n_seg)
+                if data.dtype == np.int32:
+                    assert torch.equal(got, want), name
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_edges_on_card(cuda_device):
+    """The wgmma kernel's tile edges (128 query rows a block, 128 keys a
+    tile): Sq and Sk one off a multiple of 128, causal and not, B > 1 with
+    GQA, and D = 128 at Sq = 2,048; the same per-row bar and q x 1.03
+    control as above."""
+    rng = np.random.default_rng(5)
+    cases = [  # B, H, Hkv, Sq, Sk, D, causal
+        (1, 4, 4, 127, 127, 64, True),
+        (1, 4, 4, 129, 129, 64, True),
+        (1, 4, 2, 255, 255, 128, True),
+        (1, 4, 4, 257, 257, 64, False),
+        (1, 2, 2, 129, 257, 64, True),
+        (1, 2, 2, 255, 127, 128, False),
+        (3, 8, 2, 257, 257, 64, True),
+        (2, 6, 3, 255, 255, 128, False),
+        (1, 24, 8, 2048, 2048, 128, True),
+    ]
+    for B, H, Hkv, Sq, Sk, D, causal in cases:
+        q = t(rng.standard_normal((B, Sq, H, D), dtype=np.float32))
+        k = t(rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32))
+        v = t(rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32))
+        args = [x.to(torch.bfloat16).to(cuda_device).transpose(1, 2)
+                for x in (q, k, v)]
+        got = flash_attention(*args, causal=causal)
+        want = flash_attention_plain(*args, causal=causal)
+        ctl = flash_attention(args[0] * 1.03, *args[1:], causal=causal)
+        case = (B, H, Hkv, Sq, Sk, D, causal)
+        assert row_rel_err(got, want) <= 1e-2, case
+        assert row_rel_err(ctl, want) > 1e-2, case

@@ -122,6 +122,41 @@ def test_segment_sum_matches_reference(dtype, d):
                                        atol=1e-5)
 
 
+def edge_ids(case, rng):
+    """(ids, n_seg) at the CUDA kernel's edges (tiles of 4,096 rows, 16 a
+    thread): runs over many tiles, power-law run lengths, long gaps with ids
+    from 5,000, nothing but the pad id, a few rows."""
+    if case == "long runs":
+        return np.sort(rng.integers(0, 3, 20_000)), 3
+    if case == "power-law":
+        lengths = np.minimum(rng.zipf(1.8, 500), 300)
+        return np.repeat(np.arange(lengths.size), lengths), lengths.size
+    if case == "gaps":
+        gaps = np.cumsum(rng.integers(1, 300, 100)) + 5000
+        return np.sort(rng.choice(gaps, 6000)), int(gaps[-1]) + 700
+    if case == "all pad":
+        return np.full(5000, 70), 70
+    return np.sort(rng.integers(0, 6, int(case))), 5
+
+
+@pytest.mark.parametrize("case", ["long runs", "power-law", "gaps",
+                                  "all pad", "1", "7", "17"])
+def test_segment_sum_edges_match_reference(case):
+    """The wrapper (its plain version on CPU) vs the reference's oracle on
+    the inputs tests/test_torch_cuda.py holds the kernel to."""
+    rng = np.random.default_rng(len(case))
+    ids, n_seg = edge_ids(case, rng)
+    ids = ids.astype(np.int32)
+    for data in (rng.integers(-5, 6, (ids.size, 1)).astype(np.int32),
+                 rng.standard_normal((ids.size, 1)).astype(np.float32)):
+        want = np.asarray(jref.segment_sum_ref(data, ids, n_seg))
+        got = segment_sum(t(data), t(ids), n_seg).numpy()
+        if data.dtype == np.int32:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
 def test_segment_sum_matches_pallas_interpret():
     rng = np.random.default_rng(3)
     n_seg, E = 200, 700
