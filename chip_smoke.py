@@ -12,8 +12,8 @@ its plain-torch version on the card.  Phases (any failure ends the run with
 a non-zero exit):
 
   1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc),
-     with the registers, shared memory and spills ptxas reports for the
-     kernels redesigned for Hopper (flash attention, segment sum);
+     printing what ptxas reports for every kernel: registers, static
+     shared memory, spills;
   2. each kernel vs its plain version, with times: the round kernels at the
      smoke graph's plan (the segment sum also through unaligned views and
      on runs that cross many of its tiles), tricount at ragged small n and
@@ -53,8 +53,6 @@ import argparse
 import json
 import math
 import os
-import re
-import shutil
 import subprocess
 import sys
 import time
@@ -105,8 +103,6 @@ FLASH_D128 = (1, 24, 8, 4096, 128)
 # order than the twin's, far under the ~1e-3 of a bf16 or TF32 product.
 FLASH_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 CONTROL_SCALE = 1.03     # the control: q scaled, i.e. the softmax scale off
-# the sources redesigned for Hopper, whose ptxas summary phase 1 prints
-PTXAS_SOURCES = ("flash_attention.cu", "segment_sum.cu")
 
 
 def log(msg: str) -> None:
@@ -118,39 +114,6 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def ptxas_summary(logs) -> None:
-    """One line per kernel of PTXAS_SOURCES: registers, static shared memory
-    and spills, as ``nvcc -Xptxas -v`` reported them in this run's build
-    (names demangled by c++filt where it is installed)."""
-    for src in PTXAS_SOURCES:
-        text = logs.get(src)
-        if text is None:
-            log(f"[ptxas] {src}: no build log (library built earlier)")
-            continue
-        rows, name, spills = [], None, ""
-        for line in text.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                name = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-            if m and name:
-                rows.append((name, m.group(1), m.group(2), spills))
-                name = None
-        names = [r[0] for r in rows]
-        if shutil.which("c++filt") and names:
-            out = subprocess.run(["c++filt"], input="\n".join(names),
-                                 capture_output=True, text=True).stdout
-            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
-                     for n in out.splitlines()]
-        for n, (_, regs, smem, spills) in zip(names, rows):
-            log(f"[ptxas] {src} {n}: {regs} registers, {smem} B static "
-                f"smem, {spills}")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -772,7 +735,6 @@ def main() -> int:
     log(f"[build] {os.path.relpath(lib, ROOT)} from "
         f"{[os.path.relpath(s, ROOT) for s in _build.sources()]} in "
         f"{time.perf_counter() - t:.2f} s")
-    ptxas_summary(_build.PTXAS_LOG)
     phase_t = log_phase(1, phase_t)
 
     # -- phase 2: the smoke graph, its plan, kernels vs plain -------------

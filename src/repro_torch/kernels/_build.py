@@ -26,9 +26,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# nvcc's output (ptxas registers, shared memory and spills per kernel) of
-# each source compiled by this process's build(), by file name
-PTXAS_LOG: dict = {}
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
@@ -84,9 +81,7 @@ def build(verbose: bool = False) -> Path:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
-                continue
-            PTXAS_LOG[src.name] = log
-            if verbose:
+            elif verbose:
                 print(f"[nvcc {src.name}]\n{log.strip()}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

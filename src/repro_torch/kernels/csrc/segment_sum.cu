@@ -86,31 +86,31 @@ __device__ __forceinline__ void put(T* out, int id, int n_seg, int d, int j,
 // conflicts)
 __device__ __forceinline__ int pad(int k) { return k + (k >> 4); }
 
-// a tile's column j of data (rows past E as 0), loaded coalesced: 16-byte
-// vectors when kVec and the tile is whole
-template <typename T, bool kVec>
-__device__ __forceinline__ void load_values(T* s_v, const T* data,
-                                            long long tile0, long long E,
-                                            int d, int j, int tid) {
+// column j of a tile of rows (src[k * d + j] for tile rows k; rows past E
+// read as `fill`) into shared memory, coalesced: 16-byte vectors when kVec
+// (d = 1, aligned) and the tile is whole
+template <typename U, bool kVec>
+__device__ __forceinline__ void load_tile(U* dst, const U* src,
+                                          long long tile0, long long E,
+                                          int d, int j, U fill, int tid) {
   if (kVec && tile0 + kTile <= E) {
-    using V = typename Vec4<T>::type;
-    const V* p = reinterpret_cast<const V*>(data + tile0);
+    using V = typename Vec4<U>::type;
+    const V* p = reinterpret_cast<const V*>(src + tile0);
 #pragma unroll
     for (int m = 0; m < kItems / 4; ++m) {
       const int c = tid + kThreads * m;
       const V x = __ldg(p + c);
       const int k = pad(4 * c);
-      s_v[k] = x.x;
-      s_v[k + 1] = x.y;
-      s_v[k + 2] = x.z;
-      s_v[k + 3] = x.w;
+      dst[k] = x.x;
+      dst[k + 1] = x.y;
+      dst[k + 2] = x.z;
+      dst[k + 3] = x.w;
     }
   } else {
 #pragma unroll 4
     for (int m = 0; m < kItems; ++m) {
       const int k = tid + kThreads * m;
-      s_v[pad(k)] =
-          tile0 + k < E ? __ldg(data + (tile0 + k) * d + j) : T(0);
+      dst[pad(k)] = tile0 + k < E ? __ldg(src + (tile0 + k) * d + j) : fill;
     }
   }
 }
@@ -130,30 +130,12 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long tile0 = (long long)blockIdx.x * kTile;
 
-  // the tile's ids (rows past E carry INT_MAX), loaded coalesced
-  if (kVec && tile0 + kTile <= E) {
-    const int4* p = reinterpret_cast<const int4*>(ids + tile0);
-#pragma unroll
-    for (int m = 0; m < kItems / 4; ++m) {
-      const int c = tid + kThreads * m;
-      const int4 x = __ldg(p + c);
-      const int k = pad(4 * c);
-      s_id[k] = x.x;
-      s_id[k + 1] = x.y;
-      s_id[k + 2] = x.z;
-      s_id[k + 3] = x.w;
-    }
-  } else {
-#pragma unroll 4
-    for (int m = 0; m < kItems; ++m) {
-      const int k = tid + kThreads * m;
-      s_id[pad(k)] = tile0 + k < E ? __ldg(ids + tile0 + k) : INT_MAX;
-    }
-  }
+  // the tile's ids; rows past E carry INT_MAX
+  load_tile<int, kVec>(s_id, ids, tile0, E, 1, 0, INT_MAX, tid);
   const int* my_id = s_id + pad(tid * kItems);
   const T* my_v = s_v + pad(tid * kItems);
   for (int j = 0; j < d; ++j) {
-    load_values<T, kVec>(s_v, data, tile0, E, d, j, tid);
+    load_tile<T, kVec>(s_v, data, tile0, E, d, j, T(0), tid);
     __syncthreads();
     // the id of the row before this thread's first (the row before 0
     // carries INT_MIN)
