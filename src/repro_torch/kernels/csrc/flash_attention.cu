@@ -966,8 +966,8 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no link against libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
