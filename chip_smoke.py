@@ -15,10 +15,18 @@ a non-zero exit):
      printing what ptxas reports for every kernel: registers, static
      shared memory, spills;
   2. each kernel vs its plain version, with times: the round kernels at the
-     smoke graph's plan (the segment sum also through unaligned views and
-     on runs that cross many of its tiles), tricount at ragged small n and
-     on the 32k graph's oriented adjacency;
-  3. the main path, with the megakernel's launch count == peel rounds;
+     smoke graph's plan (the megakernel also with every r-clique peeled,
+     dying or unchanged, on one run of 150,000 edges, on the C = 2, 4, 6
+     plans of golden problems and through unaligned views; the segment sum
+     also through unaligned views and on runs that cross many of its
+     tiles), tricount at ragged small n (densities 1e-3 and 0.3, an empty
+     and a full row, the raise on values other than 0/1), on the 32k
+     graph's oriented adjacency and on a dense input (n = 8,192, density
+     0.3); the megakernel's bound counts what the timed round needs;
+  3. the main path, with the megakernel's launch count == peel rounds, its
+     traced device time summed over the rounds beside the path's bound
+     (reckoned from order_round: the edges of the r-cliques still live
+     after each round);
   4. the segment-sum path (``fused_kernel=False``), bit-identical to phase 3;
   5. the chunked build: ``decompose(g32k, build="chunked", 24 GiB budget)``
      takes the dense fast path (one tricount launch) and equals the eager
@@ -69,7 +77,12 @@ SMALL_N = 20_000     # vertices of the card-vs-CPU graph
 DENSE_N = 32_768     # vertices of the chunked build's dense fast-path graph
 DENSE_BUDGET = 24 << 30   # >= 5·n²·4 at DENSE_N: the dense (2,3) fast path
 SPARSE_BUDGET = 4 << 30   # far under 5·n²·4 at SMOKE_N: the sparse path
-RAGGED_N = (1, 127, 130, 257)
+RAGGED_N = (1, 31, 33, 127, 130, 257)  # around tricount's 32-column words
+TRICOUNT_DENSITY = (1e-3, 0.3)  # probe counts and popcount counts
+DENSE_INPUT_N = 8_192    # tricount's dense input (density 0.3), timed
+LONG_RUN = 150_000       # edges of one r-clique in peel_round's edge case
+# (r, s) problems on golden graphs whose plans have C = 2, 4 and 6 members
+GOLDEN_PLANS = (("planted40", 1, 2), ("planted40", 3, 4), ("er20", 2, 4))
 LM_ARCH = "minicpm-2b"   # the LM path's model, at its published width
 PREFILL_S = 32_768       # prefill_32k's sequence (its global batch 32 -> 1)
 PLAIN_ROWS = 1_024       # query rows per slice of the plain twin at PREFILL_S
@@ -136,10 +149,19 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def int8_product(adj: torch.Tensor) -> torch.Tensor:
+    """The int8 library call of tricount_oriented's function: a tensor-core
+    product with int32 sums (exact for 0/1), then the f32 mask."""
+    d8 = adj.to(torch.int8)
+    return torch._int_mm(d8, d8.t()).to(torch.float32).mul_(adj)
+
+
 def phase_tricount(g32k, seed: int):
-    """Phase 2, tricount: kernel vs plain at ragged small n (both operand
-    layouts, random 0/1 with no symmetry, so a transposed operand would
-    show) and on the 32k graph's oriented adjacency, with times."""
+    """Phase 2, tricount: kernel vs plain at ragged small n around the
+    32-column words, at densities 1e-3 and 0.3 with an empty and a full row
+    (both operand layouts, random 0/1 with no symmetry, so a transposed
+    operand would show), the raise on values other than 0/1, on the 32k
+    graph's oriented adjacency and on a dense input, with times."""
     from repro_torch.kernels.tricount import (tricount_oriented,
                                               tricount_oriented_plain,
                                               tricount_per_edge,
@@ -148,13 +170,28 @@ def phase_tricount(g32k, seed: int):
     pairs = ((tricount_oriented, tricount_oriented_plain),
              (tricount_per_edge, tricount_per_edge_plain))
     for n in RAGGED_N:
-        a = (torch.rand((n, n), generator=gen, device="cuda") < 0.3).float()
-        for kernel, plain in pairs:
-            require(torch.equal(kernel(a), plain(a)),
-                    f"{kernel.__name__} differs from its plain version at "
-                    f"n={n}")
-    log(f"[kernels] tricount oriented/per_edge at n={RAGGED_N}: equal to "
-        f"plain")
+        for density in TRICOUNT_DENSITY:
+            a = (torch.rand((n, n), generator=gen, device="cuda") <
+                 density).float()
+            if n > 3:
+                a[1] = 0.0  # an empty row
+                a[2] = 1.0  # a full row
+            for kernel, plain in pairs:
+                require(torch.equal(kernel(a), plain(a)),
+                        f"{kernel.__name__} differs from its plain version "
+                        f"at n={n}, density {density}")
+    for bad in (2.0, float("nan")):
+        a = torch.zeros((70, 70), device="cuda")
+        a[3, 69] = bad
+        for kernel, _ in pairs:
+            try:
+                kernel(a)
+            except ValueError:
+                continue
+            raise AssertionError(f"{kernel.__name__} took the value {bad}")
+    log(f"[kernels] tricount oriented/per_edge at n={RAGGED_N}, densities "
+        f"{TRICOUNT_DENSITY}, an empty and a full row: equal to plain; "
+        f"2.0 and NaN raise")
     from repro_torch.core.incidence import dense_dag, pick_rank
     dg, _ = pick_rank(g32k)
     dense = dense_dag(dg)[2]
@@ -177,12 +214,11 @@ def phase_tricount(g32k, seed: int):
     tc_plain = cuda_ms(lambda: tricount_oriented_plain(dense), 1, 1)
 
     # library calls of the same function, f32 in and out: int8 tensor-core
-    # product with int32 sums (exact for 0/1, the kernel's own route), bf16
-    # with fp32 accumulation (exact while counts stay under 2^8 in its bf16
-    # output) and f32 on the SIMT units (TF32 is off)
+    # product with int32 sums (exact for 0/1), bf16 with fp32 accumulation
+    # (exact while counts stay under 2^8 in its bf16 output) and f32 on the
+    # SIMT units (TF32 is off)
     def lib_int8():
-        d8 = dense.to(torch.int8)
-        return torch._int_mm(d8, d8.t()).to(torch.float32).mul_(dense)
+        return int8_product(dense)
 
     def lib_bf16():
         db = dense.to(torch.bfloat16)
@@ -212,6 +248,32 @@ def phase_tricount(g32k, seed: int):
         f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms")
     del dense
     torch.cuda.empty_cache()
+
+    # a dense input: every row holds ~0.3 n ones, more than its n / 32
+    # bitset words, so the kernel counts by popcounts over whole rows
+    n8 = DENSE_INPUT_N
+    a = (torch.rand((n8, n8), generator=gen, device="cuda") < 0.3).float()
+    want = tricount_oriented_plain(a)
+    require(torch.equal(tricount_oriented(a), want),
+            f"tricount_oriented differs from its plain version on the dense "
+            f"input (n={n8}, density 0.3)")
+    require(torch.equal(int8_product(a), want), "the int8 library product "
+            "differs from the plain version on the dense input")
+    nnz8 = int(a.sum())
+    del want
+    dense_in = {"shape": f"({n8}, {n8}) density 0.3, oriented",
+                "ms": cuda_ms(lambda: tricount_oriented(a), 5),
+                "plain_ms": cuda_ms(lambda: tricount_oriented_plain(a), 3,
+                                    1),
+                "library_ms": cuda_ms(lambda: int8_product(a), 5),
+                "bound_ms": max(1e3 * 8.0 * n8 * n8 / HBM_BYTES_PER_S,
+                                1e3 * 2.0 * n8 * nnz8 / INT8_OPS_PER_S)}
+    del a
+    torch.cuda.empty_cache()
+    log(f"[kernels] tricount on the dense input {dense_in['shape']}: kernel "
+        f"{dense_in['ms']:.4f} ms, plain {dense_in['plain_ms']:.4f} ms, int8 "
+        f"library {dense_in['library_ms']:.4f} ms, bound "
+        f"{dense_in['bound_ms']:.4f} ms")
     return {"name": "tricount", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tricount.cu",
             "replaces": "src/repro/kernels/tricount.py:67",
@@ -219,7 +281,8 @@ def phase_tricount(g32k, seed: int):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib["int8 torch._int_mm"],
-            "library_call": "torch._int_mm(D8, D8.t()) * D"}
+            "library_call": "torch._int_mm(D8, D8.t()) * D",
+            "dense_input": dense_in}
 
 
 def phase_kernels(problem, seed: int):
@@ -265,15 +328,31 @@ def phase_kernels(problem, seed: int):
             f"to plain (r-cliques decremented: {dead})")
         if timed_state is None or frac == 0.3:
             timed_state = args
+    peel_round_edges(offsets, members, deg0, gen)
     pr_ms = cuda_ms(lambda: fused_peel_round(*timed_state), 20)
     pr_plain = cuda_ms(lambda: peel_round_plain(*timed_state), 3, 1)
-    pr_bytes = 4 * (E * C + (n_r + 1) + 2 * C * E + 8 * n_r)
+    # the least bytes of the timed round on its input: the member rows and
+    # 2·C gathered int32 of the edges of the r-cliques that are live and
+    # above level (the only ones whose deg' takes a dead count), the
+    # offsets, and 8·n_r int32 of state in and out; beside it the figure of
+    # earlier PRs, which read the whole plan
+    deg_t, peeled_t, level_t = timed_state[2], timed_state[3], timed_state[6]
+    counts = offsets[1:] - offsets[:-1]
+    e_need = int(counts[(peeled_t == 0) & (deg_t > level_t)].sum())
+    pr_bytes = 4 * (3 * C * e_need + (n_r + 1) + 8 * n_r)
+    pr_full = 4 * (3 * C * E + (n_r + 1) + 8 * n_r)
+    log(f"[kernels] peel_round timed state (peeled fraction 0.3, level "
+        f"{level_t}): {e_need} of {E} plan edges needed; bound by need "
+        f"{1e3 * pr_bytes / HBM_BYTES_PER_S:.4f} ms, full plan "
+        f"{1e3 * pr_full / HBM_BYTES_PER_S:.4f} ms")
     rows.append({"name": "peel_round", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/peel_round.cu",
                  "replaces": "src/repro/kernels/peel_round.py:142",
                  "max_abs_err": pr_err, "ms": pr_ms, "plain_ms": pr_plain,
                  "bound_ms": 1e3 * pr_bytes / HBM_BYTES_PER_S,
-                 "bound_by": "bytes", "library_ms": None})
+                 "bound_by": "bytes", "library_ms": None,
+                 "needed_edges": e_need,
+                 "bound_full_plan_ms": 1e3 * pr_full / HBM_BYTES_PER_S})
 
     rids, sids = _scatter_plan(problem)
     max_err = 0
@@ -335,6 +414,72 @@ def phase_kernels(problem, seed: int):
     return rows
 
 
+def peel_round_edges(offsets, members, deg0, gen) -> None:
+    """peel_round vs its plain version where the redesign could break: the
+    skip's extremes on the smoke plan (every r-clique peeled, every one
+    dying, none changing), one r-clique owning LONG_RUN edges beside runs
+    of 1 to 3, the C = 2, 4 and 6 plans of GOLDEN_PLANS, and the smoke plan
+    through views one element in (pointers off 16-byte alignment)."""
+    from repro_torch.core import build_problem
+    from repro_torch.core.engine import _round_plan
+    from repro_torch.graph.generators import golden_suite
+    from repro_torch.kernels.peel_round import (fused_peel_round,
+                                                peel_round_plain)
+    dev = offsets.device
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def check(what, offs, mem, state, level):
+        args = (offs, mem) + tuple(state) + (level, 5)
+        got = fused_peel_round(*args)
+        want = peel_round_plain(*args)
+        for name, a, b in zip(("deg", "peeled", "core", "order"), got, want):
+            require(torch.equal(a, b), f"peel_round {name} differs from its "
+                    f"plain version on {what}")
+
+    n_r, level = int(deg0.shape[0]), 4
+    zeros = torch.zeros(n_r, dtype=torch.int32, device=dev)
+    core, order = ints(-1, 50, n_r), ints(-1, 50, n_r)
+    for what, deg, peeled in (
+            ("every r-clique peeled", deg0, zeros + 1),
+            ("every r-clique dying", torch.clamp(deg0, max=level), zeros),
+            ("no r-clique changing", deg0 + level + 1, zeros)):
+        check(f"the smoke plan, {what}", offsets, members,
+              (deg, peeled, core, order), level)
+    state = (deg0 - ints(0, 3, n_r), (ints(0, 10, n_r) < 3).to(torch.int32),
+             core, order)
+    check("the smoke plan through views one element in",
+          *[torch.cat([x[:1], x])[1:] for x in (offsets, members)],
+          [torch.cat([x[:1], x])[1:] for x in state], level)
+    del state
+
+    counts = ints(1, 4, 200_000)
+    counts[100_000] = LONG_RUN
+    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                      torch.cumsum(counts, 0, dtype=torch.int32)])
+    n = counts.shape[0]
+    mem = torch.randint(-1, n, (int(offs[-1]), 3), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for level in (0, 4, 11):
+        check(f"one run of {LONG_RUN} edges beside 199,999 of 1 to 3",
+              offs, mem, (ints(0, 12, n), (ints(0, 10, n) < 3).to(
+                  torch.int32), ints(-1, 50, n), ints(-1, 50, n)), level)
+    for name, r, s in GOLDEN_PLANS:
+        p = build_problem(golden_suite()[name](device=dev), r, s, device=dev)
+        offs, mem = _round_plan(p)
+        n = p.n_r
+        for level in (0, 4, 11):
+            check(f"{name} ({r},{s}), C={mem.shape[1]}", offs, mem,
+                  (ints(0, 12, n), (ints(0, 10, n) < 3).to(torch.int32),
+                   ints(-1, 50, n), ints(-1, 50, n)), level)
+    log(f"[kernels] peel_round on the smoke plan with every r-clique peeled,"
+        f" dying or unchanged and through unaligned views, one run of "
+        f"{LONG_RUN} edges, the C = 2, 4, 6 plans of {GOLDEN_PLANS}: equal "
+        f"to plain")
+
+
 def exact_core_support_ok(problem, core: torch.Tensor) -> bool:
     """Every r-clique of core k lies in >= k s-cliques whose members all
     have core >= k (the nucleus definition's support condition)."""
@@ -348,12 +493,13 @@ def exact_core_support_ok(problem, core: torch.Tensor) -> bool:
     return bool((support >= core).all())
 
 
-def profile_peel(problem) -> None:
+def profile_peel(problem):
     """Where the peel's time goes: decompose() of the built problem (fused
     hierarchy on), once untraced and then once traced.  The trace's device
     events (kernels, copies) give the device time; the busy share is that
     over the untraced call's wall time, because tracing slows the host
-    side."""
+    side.  Returns the megakernel's summed device seconds and launch count
+    in the traced call (None, 0 when the trace has no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import NucleusConfig, decompose
@@ -380,7 +526,7 @@ def profile_peel(problem) -> None:
     if busy == 0:
         log(f"[profile] traced wall {traced_s:.2f} s; the profiler captured "
             f"no device time (device share not measured)")
-        return
+        return None, 0
     log(f"[profile] peel with fused hierarchy: device time {busy:.2f} s "
         f"over {untraced_s:.2f} s untraced wall = "
         f"{100 * busy / untraced_s:.1f}% busy, "
@@ -389,6 +535,9 @@ def profile_peel(problem) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:6]:
         log(f"[profile]   {dev_us(e) / 1e6:8.3f} s  x{e.count:<7d} "
             f"{e.key[:90]}")
+    mega = [e for e in events if "peel_round" in e.key]
+    return (sum(dev_us(e) for e in mega) / 1e6,
+            sum(e.count for e in mega))
 
 
 def paired_build_s(g, budget: int):
@@ -799,7 +948,26 @@ def main() -> int:
         f"{bare_s:.2f} of which megakernel~{kernel_s:.2f} "
         f"(launches x kernel_ms), fused hierarchy~"
         f"{dec_s - build_s - bare_s:.2f}")
-    profile_peel(p)
+    mega_s, mega_n = profile_peel(p)
+    # the path's least bytes, reckoned from the run: in round t the needed
+    # r-cliques are those peeled after it (order_round > t), so their edges
+    # are read in order_round rounds; each round also streams the offsets
+    # and 8·n_r int32 of state
+    counts = (p.mem_offsets[1:] - p.mem_offsets[:-1]).long()
+    order_t = torch.as_tensor(dec.order_round, device="cuda").long()
+    path_edges = int((counts * order_t).sum())
+    n_plan = int(p.mem_sids.shape[0])
+    C = int(p.inc_rid.shape[1])
+    path_bytes = 4 * (3 * C * path_edges + dec.rounds * (9 * p.n_r + 1))
+    path_bound_s = path_bytes / HBM_BYTES_PER_S
+    log(f"[main] megakernel over the {dec.rounds} rounds (traced): "
+        f"{mega_s if mega_s is None else round(mega_s, 4)} s device time in "
+        f"{mega_n} launches; the path's bound by need {path_bound_s:.4f} s "
+        f"({path_edges} needed edge reads = "
+        f"{path_edges / max(1, dec.rounds * n_plan):.4f} of rounds x E)")
+    rows[0]["path_ms"] = None if mega_s is None else 1e3 * mega_s
+    rows[0]["path_launches"] = mega_n
+    rows[0]["path_bound_ms"] = 1e3 * path_bound_s
     levels = np.unique(dec.core[dec.core > 0])
     t = time.perf_counter()
     tree = dec.tree

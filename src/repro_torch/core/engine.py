@@ -228,22 +228,24 @@ def peel_round(inc_rid, deg, peeled, s_alive, core, order_round, level: int,
     """THE peel-round body, at a level the schedule already chose.
 
     inc_rid: (n_s, C) member r-clique ids (-1 = ghost padding);
-    deg/core/order_round: (n_r,) int32; peeled (n_r,) bool; s_alive (n_s,)
-    bool.  Returns (deg, peeled, s_alive, core, order_round, a_mask), where
-    a_mask is the round's peeled set.
+    deg/core/order_round: (n_r,) int32; peeled (n_r,) bool, or int32 0/1
+    with fused_round; s_alive (n_s,) bool.  Returns (deg, peeled, s_alive,
+    core, order_round, a_mask), where a_mask (bool) is the round's peeled
+    set.
 
     scatter(dead_now) -> (n_r,) delta replaces the decrement (the
     segment-sum kernel path).  fused_round(deg, peeled, core, order, level,
     rounds) -> (deg, peeled, core, order) replaces the whole select + gather
     + decrement chain (the megakernel); s_alive then passes through
-    untouched, because the megakernel derives liveness from ``peeled``.
+    untouched, because the megakernel derives liveness from ``peeled``,
+    which it takes and returns as int32 0/1 (no cast on either side).
     """
     n_r = deg.shape[0]
     if fused_round is not None:
         deg, peeled_new, core, order_round = fused_round(
             deg, peeled, core, order_round, level, rounds)
         return (deg, peeled_new, s_alive, core, order_round,
-                peeled_new & ~peeled)
+                peeled_new > peeled)
     a_mask = (~peeled) & (deg <= level)
     core = torch.where(a_mask, torch.full_like(core, level), core)
     order_round = torch.where(a_mask, torch.full_like(order_round, rounds),
@@ -289,8 +291,11 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
             empty = torch.zeros((0,), dtype=INT, device=dev)
             return core, order, 0, empty, empty
         return core, order, 0
-    peeled = torch.zeros((n_r,), dtype=torch.bool, device=dev) \
-        if peeled0 is None else peeled0.to(device=dev, dtype=torch.bool)
+    # the megakernel's rounds carry peeled as int32 0/1, the others as bool
+    p_dtype = INT if fused_round is not None else torch.bool
+    peeled = torch.zeros((n_r,), dtype=p_dtype, device=dev) \
+        if peeled0 is None else peeled0.to(device=dev, dtype=torch.bool).to(
+            p_dtype)
     s_alive = torch.ones((n_s,), dtype=torch.bool, device=dev)
     if hierarchy:
         parent = torch.arange(n_r, dtype=INT, device=dev)
@@ -306,7 +311,7 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
     while rounds < max_rounds:
         # the round's one host sync: the minimum live degree, which is BIG
         # exactly when every r-clique is peeled
-        dmin = int(torch.where(peeled, BIG, deg).min())
+        dmin = int(torch.where(peeled.bool(), BIG, deg).min())
         if dmin == BIG:
             break
         sched, level = schedule.next_level(sched, dmin)
@@ -409,10 +414,8 @@ def dense_coreness(problem: NucleusProblem, schedule: PeelSchedule, *,
             offsets, members = _round_plan(problem)
 
             def fused_round(deg, peeled, core, order, level, rnd):
-                d, p, c, o = fused_peel_round(offsets, members, deg,
-                                              peeled.to(INT), core, order,
-                                              level, rnd)
-                return d, p > 0, c, o
+                return fused_peel_round(offsets, members, deg, peeled, core,
+                                        order, level, rnd)
         else:
             plan_rids, plan_sids = _scatter_plan(problem)
 

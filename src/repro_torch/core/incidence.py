@@ -411,10 +411,11 @@ def _build_chunked_23_dense(g: Graph, dg: Digraph, orientation: str,
         raise RuntimeError(f"the tricount count pass found {n_s} triangles "
                            f"but the fill found {at}")
 
-    # count stage: dense + counts + the kernel's int8 staging; fill stage:
-    # dense + one sub-block's two gathered rows and their product
-    n_pad = -(-n // 128) * 128
-    peak = max(8 * n * n + n_pad * n_pad, 4 * n * n + 12 * sub * n)
+    # count stage: dense + counts + the kernel's row bitsets (n words of
+    # ceil(n / 32) uint32); fill stage: dense + one sub-block's two gathered
+    # rows and their product
+    bitsets = 4 * n * (-(-n // 32))
+    peak = max(8 * n * n + bitsets, 4 * n * n + 12 * sub * n)
     stats = {"build": "chunked", "chunk_size": e_block, "n_chunks": n_blocks,
              "peak_intermediate_bytes": int(peak),
              "memory_budget_bytes": budget, "fastpath": True}

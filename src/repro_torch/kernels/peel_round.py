@@ -2,9 +2,13 @@
 
 Replaces ``repro/kernels/peel_round.py::fused_peel_round`` (the TPU
 megakernel).  The CUDA source is ``csrc/peel_round.cu``; its header note
-says what bounds it on an H100 (memory: member rows plus two random int32
-gathers per member) and how the design answers that (one warp per r-clique
-striding its CSR edge range, a warp reduction, no atomics).
+says what bounds it on an H100 (memory: the state stream, plus member rows
+and two scattered int32 gathers per member for the edges of the r-cliques
+that are live and survive the round, the only ones whose deg changes) and
+how the design answers that (a thread per r-clique reads its state and
+skips the rest; the block's lanes walk the needed edges laid end to end by
+a scan, whatever the run lengths; a ballot and popcount per run, no atomics
+on deg).
 
 The port's plan is ``(offsets, members)``: ``offsets`` is the incidence CSR
 (``NucleusProblem.mem_offsets``, r-clique r owns edges

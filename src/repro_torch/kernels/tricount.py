@@ -4,9 +4,10 @@ Replaces ``repro/kernels/tricount.py::_masked_matmul`` (the TPU kernel) and
 its entry points ``tricount_per_edge``, ``tricount_oriented`` and
 ``triangle_count``.  The CUDA source is ``csrc/tricount.cu``; its header
 note says what bounds the function on an H100 (bytes: one read of adj, one
-write of out; the masked product needs only 2n·nnz operations) and what the
-design does (a dense int8 tensor-core product of a staged 0/1 copy, int32
-sums, the f32 mask applied in the epilogue).
+write of out; the mask keeps nnz(adj) of the n² outputs) and what the
+design does (a pack pass into row bitsets, then per output row the zeros
+and a count at each of the row's nonzeros only, by bit probes or popcounts
+over the bitsets).
 
 The reference zero-pads n to its 128 tile and slices the result; the
 kernel masks the ragged edge itself, so the wrappers take any n and return
@@ -21,7 +22,7 @@ import torch
 from . import launch_counts, ref
 from ._checks import kernel_device, need
 
-TILE = 128
+WORD = 32  # columns per bitset word
 
 
 def tricount_per_edge_plain(adj: torch.Tensor) -> torch.Tensor:
@@ -51,17 +52,17 @@ def _masked_product(adj: torch.Tensor, op_transposed: bool, plain,
     out = torch.empty((n, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    n_pad = -(-n // TILE) * TILE
-    stage_a = torch.empty((n_pad, n_pad), dtype=torch.int8, device=dev)
-    stage_b = stage_a if op_transposed else torch.empty_like(stage_a)
+    # bitset scratch: row bitsets, and column bitsets for op = identity
+    rows = torch.empty((n, -(-n // WORD)), dtype=torch.int32, device=dev)
+    cols = rows if op_transposed else torch.empty_like(rows)
     bad = torch.zeros((1,), dtype=torch.int32, device=dev)
     from ._build import check, library
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.repro_tricount(
-            adj.data_ptr(), n, int(op_transposed), stage_a.data_ptr(),
-            stage_b.data_ptr(), out.data_ptr(), bad.data_ptr(), stream)
+            adj.data_ptr(), n, int(op_transposed), rows.data_ptr(),
+            cols.data_ptr(), out.data_ptr(), bad.data_ptr(), stream)
     launch_counts["tricount"] += 1
     check(status, "repro_tricount")
     if int(bad.item()):

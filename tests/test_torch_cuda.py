@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.engine import _round_plan
 from repro_torch.core.incidence import build_problem
-from repro_torch.graph.generators import barabasi_albert
+from repro_torch.graph.generators import barabasi_albert, golden_suite
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -64,6 +65,91 @@ def test_peel_round_kernel_on_card(cuda_device):
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w)
         assert launch_counts["peel_round"] == before + 3
+
+
+def round_states(rng, n_r, level):
+    """Random round states at `level`, then the skip's extremes: every
+    r-clique peeled, every one dying (deg <= level), none changing (every
+    deg above level, so no s-clique dies)."""
+    def draw(deg, peeled):
+        return [t(x.astype(np.int32)) for x in (
+            deg, peeled, rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r))]
+    yield "random", draw(rng.integers(0, 12, n_r), rng.integers(0, 2, n_r))
+    yield "all peeled", draw(rng.integers(0, 12, n_r), np.ones(n_r))
+    yield "all dying", draw(rng.integers(0, level + 1, n_r), np.zeros(n_r))
+    yield "none changing", draw(rng.integers(level + 1, level + 9, n_r),
+                                np.zeros(n_r))
+
+
+@pytest.mark.cuda
+def test_peel_round_edges_on_card(cuda_device):
+    """The skip and the edge-balanced walk at their edges, bit for bit
+    against the plain twin: the skip's extreme states, one r-clique owning
+    150,000 edges beside thousands with 1 to 3, the C = 2, 4 and 6 plans
+    of the (1,2), (3,4) and (2,4) problems on golden graphs, and views one
+    element in (pointers off 16-byte alignment)."""
+    rng = np.random.default_rng(6)
+
+    def random_plan(counts, C):
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        members = rng.integers(-1, counts.size, (int(offsets[-1]), C))
+        return t(offsets), t(members.astype(np.int32))
+
+    long_run = rng.integers(1, 4, 3000)
+    long_run[1500] = 150_000
+    plans = [("random runs",) + random_plan(rng.integers(0, 6, 5000), 3),
+             ("a 150,000-edge run",) + random_plan(long_run, 3)]
+    for name, r, s in (("planted40", 1, 2), ("planted40", 3, 4),
+                       ("er20", 2, 4)):
+        p = build_problem(golden_suite()[name](device="cpu"), r, s,
+                          device="cpu")
+        plans.append((f"{name} ({r},{s})",) + _round_plan(p))
+    for what, offsets, members in plans:
+        n_r = int(offsets.shape[0]) - 1
+        for state_name, state in round_states(rng, n_r, 4):
+            for level in (4,) if state_name != "random" else (0, 4, 11):
+                args = [offsets, members] + state
+                want = peel_round_plain(*args, level, 3)
+                got = fused_peel_round(*[a.to(cuda_device) for a in args],
+                                       level, 3)
+                for name, g, w in zip(("deg", "peeled", "core", "order"),
+                                      got, want):
+                    assert torch.equal(g.cpu(), w), (what, state_name,
+                                                     level, name)
+        # the same round through views one element in
+        views = [torch.cat([a[:1], a]).to(cuda_device)[1:]
+                 for a in [offsets, members] + state]
+        got = fused_peel_round(*views, 4, 3)
+        for g, w in zip(got, peel_round_plain(offsets, members, *state, 4,
+                                              3)):
+            assert torch.equal(g.cpu(), w), (what, "views")
+
+
+@pytest.mark.cuda
+def test_tricount_edges_on_card(cuda_device):
+    """The bitset kernel at ragged n around its 32-column words, an empty
+    and a full row, densities 1e-3 (probe counts) and 0.3 (popcount
+    counts), both operand layouts, bit for bit."""
+    rng = np.random.default_rng(7)
+    for n in (1, 31, 33, 127, 130, 257):
+        for density in (1e-3, 0.3):
+            a = (rng.random((n, n)) < density).astype(np.float32)
+            if n > 3:
+                a[1] = 0.0
+                a[2] = 1.0
+            cpu = t(a)
+            for kernel, plain in ((tricount_oriented,
+                                   tricount_oriented_plain),
+                                  (tricount_per_edge,
+                                   tricount_per_edge_plain)):
+                got = kernel(cpu.to(cuda_device))
+                assert torch.equal(got.cpu(), plain(cpu)), (
+                    n, density, kernel.__name__)
+    for bad in (2.0, float("nan"), 0.5):
+        a = torch.zeros((70, 70), device=cuda_device)
+        a[3, 69] = bad
+        with pytest.raises(ValueError, match="other than 0 and 1"):
+            tricount_per_edge(a)
 
 
 @pytest.mark.cuda

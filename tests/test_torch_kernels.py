@@ -6,7 +6,9 @@ version on CPU tensors) vs the same oracles.  Integer outputs must be
 equal element for element; float32 segment sums agree to 1e-5 relative
 (the sums are taken in another order).
 
-The CUDA kernels themselves are held to these plain versions by
+The states the CUDA round kernel skips (peeled before the round or in
+it) and the tricount kernel's extreme shapes and densities have cases of
+their own.  The CUDA kernels themselves are held to these plain versions by
 tests/test_torch_cuda.py (on a card) and ``chip_smoke.py``.
 """
 import numpy as np
@@ -14,7 +16,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from repro.kernels import ref as jref
+from repro.kernels import ref as jref, tricount as jtricount
 from repro.kernels.peel_round import (chunk_windows, fused_peel_round as
                                       j_fused_peel_round, peel_round_plan)
 from repro.kernels.segment_sum import segment_sum_sorted, sorted_ids_plan
@@ -22,6 +24,7 @@ from repro.kernels.segment_sum import segment_sum_sorted, sorted_ids_plan
 from repro_torch.kernels import launch_counts, ref
 from repro_torch.kernels.peel_round import fused_peel_round
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.kernels.tricount import tricount_oriented, tricount_per_edge
 
 pytestmark = pytest.mark.fast
 
@@ -97,6 +100,118 @@ def test_peel_round_matches_pallas_interpret(n_r, E):
         got = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
                                *(t(x) for x in state), level, 3)
         assert_round(got, [np.asarray(w)[:n_r] for w in want])
+
+
+SKIP_LEVEL = 5
+
+
+def skip_round(kind, rng):
+    """(rids, members, state) at the states the CUDA kernel's skip rests on:
+    an r-clique peeled before the round, or peeled in it (deg <= level),
+    keeps its deg whatever its edges say, so the kernel never reads them.
+    "all peeled" and "all dying" leave nothing to walk; "long runs" puts
+    one 2,000-edge run beside runs of 1 to 3."""
+    if kind == "long runs":
+        counts = rng.integers(1, 4, 40)
+        counts[17] = 2000
+    else:
+        counts = rng.integers(0, 6, 60)
+    n_r = counts.size
+    rids = np.repeat(np.arange(n_r), counts).astype(np.int32)
+    members = rng.integers(0, n_r, (rids.size, 3)).astype(np.int32)
+    members[rng.random(members.shape) < 0.05] = -1
+    deg = rng.integers(0, 12, n_r)
+    peeled = rng.integers(0, 2, n_r)
+    if kind == "all peeled":
+        peeled[:] = 1
+    elif kind == "all dying":
+        peeled[:] = 0
+        deg = rng.integers(0, SKIP_LEVEL + 1, n_r)
+    state = tuple(x.astype(np.int32) for x in (
+        deg, peeled, rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r)))
+    return rids, members, state
+
+
+def assert_skipped_deg_kept(got, state):
+    """deg' == deg for every r-clique peeled before or in the round."""
+    deg, peeled = state[0], state[1]
+    done = (peeled > 0) | (deg <= SKIP_LEVEL)
+    np.testing.assert_array_equal(np.asarray(got[0])[done], deg[done])
+
+
+@pytest.mark.parametrize("kind", ["all peeled", "all dying", "long runs"])
+def test_peel_round_skip_states_match_reference(kind):
+    """The wrapper (its plain version on CPU) and the port's oracle vs the
+    reference's oracle at the skip states; deg kept where the round skips."""
+    rng = np.random.default_rng(len(kind))
+    rids, members, state = skip_round(kind, rng)
+    n_r = state[0].size
+    want = jref.peel_round_ref(rids, members, *state, SKIP_LEVEL, 2)
+    assert_skipped_deg_kept(want, state)
+    got = ref.peel_round_ref(t(rids), t(members), *(t(x) for x in state),
+                             SKIP_LEVEL, 2)
+    assert_round(got, want)
+    wrapped = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
+                               *(t(x) for x in state), SKIP_LEVEL, 2)
+    assert_round(wrapped, want)
+    if kind != "long runs":
+        np.testing.assert_array_equal(wrapped[0].numpy(), state[0])
+
+
+@pytest.mark.parametrize("kind", ["all peeled", "all dying", "long runs"])
+def test_peel_round_skip_states_match_pallas_interpret(kind):
+    """The Pallas megakernel (interpret mode) vs the port's wrapper at the
+    skip states."""
+    rng = np.random.default_rng(10 + len(kind))
+    block_n, chunk_e = 32, 64
+    rids, members, state = skip_round(kind, rng)
+    n_r = state[0].size
+    ids_p, mem_p, n_r_pad, max_chunks = peel_round_plan(
+        rids, members, n_r, block_n=block_n, chunk_e=chunk_e)
+    ids_p, mem_p = jnp.asarray(ids_p), jnp.asarray(mem_p)
+    pad = n_r_pad - n_r
+    padded = [np.concatenate([x, np.full(pad, fill, np.int32)])
+              for x, fill in zip(state, (0, 1, -1, -1))]
+    c0, nch = chunk_windows(ids_p, n_r_pad, block_n, chunk_e, max_chunks)
+    want = j_fused_peel_round(
+        ids_p, mem_p, *(jnp.asarray(x) for x in padded),
+        jnp.int32(SKIP_LEVEL), jnp.int32(1), c0, nch, block_n=block_n,
+        chunk_e=chunk_e, max_chunks=max_chunks, interpret=True)
+    want = [np.asarray(w)[:n_r] for w in want]
+    assert_skipped_deg_kept(want, state)
+    got = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
+                           *(t(x) for x in state), SKIP_LEVEL, 1)
+    assert_round(got, want)
+
+
+def tricount_input(n, density, seed):
+    """A 0/1 (n, n) matrix at the given density, not symmetric; from n = 4
+    on, row 1 empty and row 2 full (the bitset kernel's extreme rows)."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < density).astype(np.float32)
+    if n > 3:
+        a[1] = 0.0
+        a[2] = 1.0
+    return a
+
+
+@pytest.mark.parametrize("density", [1e-3, 0.3])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 130, 257])
+def test_tricount_density_extremes_match_reference(n, density):
+    """The tricount wrappers (their plain versions on CPU) vs the
+    reference's oracles and its Pallas kernel (interpret mode) at the
+    shapes and densities tests/test_torch_cuda.py holds the kernel to."""
+    a = tricount_input(n, density, n)
+    ja = jnp.asarray(a)
+    for port_fn, j_fn, j_ref in (
+            (tricount_oriented, jtricount.tricount_oriented,
+             jref.tricount_oriented_ref),
+            (tricount_per_edge, jtricount.tricount_per_edge,
+             jref.tricount_per_edge_ref)):
+        got = port_fn(torch.from_numpy(a)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(j_ref(ja)))
+        np.testing.assert_array_equal(
+            got, np.asarray(j_fn(ja, interpret=True)))
 
 
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
