@@ -43,8 +43,8 @@
 // compaction), and one packed gather key (peeled ? -1 : deg) per member
 // were timed against each other over the smoke cell's rounds on the H100:
 // 128 threads were the fastest of the sizes and the compaction beat the
-// flat walk.  The packed key saved about a tenth of the kernel's time but
-// is exact only where every live deg and the level are >= 0, which the
+// flat walk.  The packed key was faster on the kernel alone, but it is
+// exact only where every live deg and the level are >= 0, which the
 // wrapper's contract does not promise, and was left out.  The one-hot MXU
 // contraction and the scalar-prefetch chunk windows of the TPU kernel have
 // no counterpart: the CSR offsets give each r-clique its edges, and the
