@@ -288,8 +288,8 @@ def phase_tricount(g32k, seed: int):
 def phase_kernels(problem, seed: int):
     """Phase 2: each kernel against its plain version at the real plan."""
     from repro_torch.core.engine import _round_plan, _scatter_plan
-    from repro_torch.kernels.peel_round import (fused_peel_round,
-                                                peel_round_plain)
+    from repro_torch.kernels.peel_round import (PEELED, fused_peel_round,
+                                                peel_key, peel_round_plain)
     from repro_torch.kernels.segment_sum import (segment_sum,
                                                  segment_sum_plain)
     dev = problem.device
@@ -313,11 +313,12 @@ def phase_kernels(problem, seed: int):
                              dtype=torch.int32)
         order = torch.randint(-1, 50, (n_r,), generator=gen, device=dev,
                               dtype=torch.int32)
-        args = (offsets, members, deg, peeled, core, order, level, 7)
+        args = (offsets, members, deg, peel_key(deg, peeled), core, order,
+                level, 7)
         got = fused_peel_round(*args)
         want = peel_round_plain(*args)
         torch.cuda.synchronize()
-        for name, a, b in zip(("deg", "peeled", "core", "order"), got, want):
+        for name, a, b in zip(("deg", "key", "core", "order"), got, want):
             pr_err = max(pr_err, int((a.to(torch.int64) -
                                       b.to(torch.int64)).abs().max()))
             require(torch.equal(a, b),
@@ -331,19 +332,21 @@ def phase_kernels(problem, seed: int):
     peel_round_edges(offsets, members, deg0, gen)
     pr_ms = cuda_ms(lambda: fused_peel_round(*timed_state), 20)
     pr_plain = cuda_ms(lambda: peel_round_plain(*timed_state), 3, 1)
-    # the least bytes of the timed round on its input: the member rows and
-    # 2·C gathered int32 of the edges of the r-cliques that are live and
-    # above level (the only ones whose deg' takes a dead count), the
-    # offsets, and 8·n_r int32 of state in and out; beside it the figure of
-    # earlier PRs, which read the whole plan
-    deg_t, peeled_t, level_t = timed_state[2], timed_state[3], timed_state[6]
+    # the least bytes of the timed round on its input, each input read
+    # once: the member rows (C int32) of the edges of the r-cliques that
+    # are live and above level (the only ones whose deg' takes a dead
+    # count), the offsets, and 8·n_r int32 of state in and out (the
+    # members' keys are re-reads of the state); beside it the earlier
+    # count, which read the whole plan and two gathered int32 per member
+    deg_t, key_t, level_t = timed_state[2], timed_state[3], timed_state[6]
     counts = offsets[1:] - offsets[:-1]
-    e_need = int(counts[(peeled_t == 0) & (deg_t > level_t)].sum())
-    pr_bytes = 4 * (3 * C * e_need + (n_r + 1) + 8 * n_r)
+    e_need = int(counts[(key_t != PEELED) & (deg_t > level_t)].sum())
+    pr_bytes = 4 * (C * e_need + (n_r + 1) + 8 * n_r)
     pr_full = 4 * (3 * C * E + (n_r + 1) + 8 * n_r)
     log(f"[kernels] peel_round timed state (peeled fraction 0.3, level "
         f"{level_t}): {e_need} of {E} plan edges needed; bound by need "
-        f"{1e3 * pr_bytes / HBM_BYTES_PER_S:.4f} ms, full plan "
+        f"{1e3 * pr_bytes / HBM_BYTES_PER_S:.4f} ms, full plan with two "
+        f"gathered int32 per member (the earlier count) "
         f"{1e3 * pr_full / HBM_BYTES_PER_S:.4f} ms")
     rows.append({"name": "peel_round", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/peel_round.cu",
@@ -423,7 +426,7 @@ def peel_round_edges(offsets, members, deg0, gen) -> None:
     from repro_torch.core import build_problem
     from repro_torch.core.engine import _round_plan
     from repro_torch.graph.generators import golden_suite
-    from repro_torch.kernels.peel_round import (fused_peel_round,
+    from repro_torch.kernels.peel_round import (fused_peel_round, peel_key,
                                                 peel_round_plain)
     dev = offsets.device
 
@@ -431,11 +434,14 @@ def peel_round_edges(offsets, members, deg0, gen) -> None:
         return torch.randint(lo, hi, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def state_of(deg, peeled, core, order):
+        return deg, peel_key(deg, peeled), core, order
+
     def check(what, offs, mem, state, level):
         args = (offs, mem) + tuple(state) + (level, 5)
         got = fused_peel_round(*args)
         want = peel_round_plain(*args)
-        for name, a, b in zip(("deg", "peeled", "core", "order"), got, want):
+        for name, a, b in zip(("deg", "key", "core", "order"), got, want):
             require(torch.equal(a, b), f"peel_round {name} differs from its "
                     f"plain version on {what}")
 
@@ -447,9 +453,9 @@ def peel_round_edges(offsets, members, deg0, gen) -> None:
             ("every r-clique dying", torch.clamp(deg0, max=level), zeros),
             ("no r-clique changing", deg0 + level + 1, zeros)):
         check(f"the smoke plan, {what}", offsets, members,
-              (deg, peeled, core, order), level)
-    state = (deg0 - ints(0, 3, n_r), (ints(0, 10, n_r) < 3).to(torch.int32),
-             core, order)
+              state_of(deg, peeled, core, order), level)
+    state = state_of(deg0 - ints(0, 3, n_r),
+                     (ints(0, 10, n_r) < 3).to(torch.int32), core, order)
     check("the smoke plan through views one element in",
           *[torch.cat([x[:1], x])[1:] for x in (offsets, members)],
           [torch.cat([x[:1], x])[1:] for x in state], level)
@@ -464,16 +470,16 @@ def peel_round_edges(offsets, members, deg0, gen) -> None:
                         device=dev, dtype=torch.int32)
     for level in (0, 4, 11):
         check(f"one run of {LONG_RUN} edges beside 199,999 of 1 to 3",
-              offs, mem, (ints(0, 12, n), (ints(0, 10, n) < 3).to(
-                  torch.int32), ints(-1, 50, n), ints(-1, 50, n)), level)
+              offs, mem, state_of(ints(0, 12, n), ints(0, 10, n) < 3,
+                                  ints(-1, 50, n), ints(-1, 50, n)), level)
     for name, r, s in GOLDEN_PLANS:
         p = build_problem(golden_suite()[name](device=dev), r, s, device=dev)
         offs, mem = _round_plan(p)
         n = p.n_r
         for level in (0, 4, 11):
             check(f"{name} ({r},{s}), C={mem.shape[1]}", offs, mem,
-                  (ints(0, 12, n), (ints(0, 10, n) < 3).to(torch.int32),
-                   ints(-1, 50, n), ints(-1, 50, n)), level)
+                  state_of(ints(0, 12, n), ints(0, 10, n) < 3,
+                           ints(-1, 50, n), ints(-1, 50, n)), level)
     log(f"[kernels] peel_round on the smoke plan with every r-clique peeled,"
         f" dying or unchanged and through unaligned views, one run of "
         f"{LONG_RUN} edges, the C = 2, 4, 6 plans of {GOLDEN_PLANS}: equal "
@@ -950,15 +956,15 @@ def main() -> int:
         f"{dec_s - build_s - bare_s:.2f}")
     mega_s, mega_n = profile_peel(p)
     # the path's least bytes, reckoned from the run: in round t the needed
-    # r-cliques are those peeled after it (order_round > t), so their edges
-    # are read in order_round rounds; each round also streams the offsets
-    # and 8·n_r int32 of state
+    # r-cliques are those peeled after it (order_round > t), so their
+    # member rows are read in order_round rounds; each round also streams
+    # the offsets and 8·n_r int32 of state
     counts = (p.mem_offsets[1:] - p.mem_offsets[:-1]).long()
     order_t = torch.as_tensor(dec.order_round, device="cuda").long()
     path_edges = int((counts * order_t).sum())
     n_plan = int(p.mem_sids.shape[0])
     C = int(p.inc_rid.shape[1])
-    path_bytes = 4 * (3 * C * path_edges + dec.rounds * (9 * p.n_r + 1))
+    path_bytes = 4 * (C * path_edges + dec.rounds * (9 * p.n_r + 1))
     path_bound_s = path_bytes / HBM_BYTES_PER_S
     log(f"[main] megakernel over the {dec.rounds} rounds (traced): "
         f"{mega_s if mega_s is None else round(mega_s, 4)} s device time in "

@@ -43,7 +43,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..graph.container import INT
 from ..graph.unionfind import uf_union_edges
-from ..kernels.peel_round import fused_peel_round
+from ..kernels.peel_round import PEELED, fused_peel_round, peel_key
 from ..kernels.segment_sum import segment_sum
 from .incidence import NucleusProblem
 from .schedule import PeelSchedule
@@ -222,30 +222,30 @@ def link_fixpoint(parent: torch.Tensor, L: torch.Tensor, core: torch.Tensor,
 # The round body and its driver
 # ---------------------------------------------------------------------------
 
-def peel_round(inc_rid, deg, peeled, s_alive, core, order_round, level: int,
+def peel_round(inc_rid, deg, key, s_alive, core, order_round, level: int,
                rounds: int, *, scatter: Optional[Callable] = None,
                fused_round: Optional[Callable] = None):
     """THE peel-round body, at a level the schedule already chose.
 
     inc_rid: (n_s, C) member r-clique ids (-1 = ghost padding);
-    deg/core/order_round: (n_r,) int32; peeled (n_r,) bool, or int32 0/1
-    with fused_round; s_alive (n_s,) bool.  Returns (deg, peeled, s_alive,
-    core, order_round, a_mask), where a_mask (bool) is the round's peeled
-    set.
+    deg/key/core/order_round: (n_r,) int32, key = ``peel_key(deg, peeled)``
+    (PEELED where peeled, else deg); s_alive (n_s,) bool.  Returns (deg,
+    key, s_alive, core, order_round, a_mask), where a_mask (bool) is the
+    round's peeled set.
 
     scatter(dead_now) -> (n_r,) delta replaces the decrement (the
-    segment-sum kernel path).  fused_round(deg, peeled, core, order, level,
-    rounds) -> (deg, peeled, core, order) replaces the whole select + gather
+    segment-sum kernel path).  fused_round(deg, key, core, order, level,
+    rounds) -> (deg, key, core, order) replaces the whole select + gather
     + decrement chain (the megakernel); s_alive then passes through
-    untouched, because the megakernel derives liveness from ``peeled``,
-    which it takes and returns as int32 0/1 (no cast on either side).
+    untouched, because the megakernel derives liveness from ``key``.
     """
     n_r = deg.shape[0]
     if fused_round is not None:
-        deg, peeled_new, core, order_round = fused_round(
-            deg, peeled, core, order_round, level, rounds)
-        return (deg, peeled_new, s_alive, core, order_round,
-                peeled_new > peeled)
+        deg, key_new, core, order_round = fused_round(
+            deg, key, core, order_round, level, rounds)
+        # a live key is its deg, which a round never raises
+        return (deg, key_new, s_alive, core, order_round, key_new > key)
+    peeled = key == PEELED
     a_mask = (~peeled) & (deg <= level)
     core = torch.where(a_mask, torch.full_like(core, level), core)
     order_round = torch.where(a_mask, torch.full_like(order_round, rounds),
@@ -261,7 +261,7 @@ def peel_round(inc_rid, deg, peeled, s_alive, core, order_round, level: int,
         delta = scatter(dead_now)
     # peeled cliques keep deg frozen (their core is already assigned)
     deg = torch.where(peeled, deg, deg - delta)
-    return deg, peeled, s_alive, core, order_round, a_mask
+    return deg, peel_key(deg, peeled), s_alive, core, order_round, a_mask
 
 
 def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
@@ -291,11 +291,7 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
             empty = torch.zeros((0,), dtype=INT, device=dev)
             return core, order, 0, empty, empty
         return core, order, 0
-    # the megakernel's rounds carry peeled as int32 0/1, the others as bool
-    p_dtype = INT if fused_round is not None else torch.bool
-    peeled = torch.zeros((n_r,), dtype=p_dtype, device=dev) \
-        if peeled0 is None else peeled0.to(device=dev, dtype=torch.bool).to(
-            p_dtype)
+    key = deg0 if peeled0 is None else peel_key(deg0, peeled0.to(dev))
     s_alive = torch.ones((n_s,), dtype=torch.bool, device=dev)
     if hierarchy:
         parent = torch.arange(n_r, dtype=INT, device=dev)
@@ -309,14 +305,14 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
     sched = schedule.init_carry()
     rounds = 0
     while rounds < max_rounds:
-        # the round's one host sync: the minimum live degree, which is BIG
-        # exactly when every r-clique is peeled
-        dmin = int(torch.where(peeled.bool(), BIG, deg).min())
-        if dmin == BIG:
+        # the round's one host sync: the minimum key, which is the minimum
+        # live degree, and PEELED exactly when every r-clique is peeled
+        dmin = int(key.min())
+        if dmin == PEELED:
             break
         sched, level = schedule.next_level(sched, dmin)
-        deg, peeled, s_alive, core, order, a_mask = peel_round(
-            inc_rid, deg, peeled, s_alive, core, order, level, rounds,
+        deg, key, s_alive, core, order, a_mask = peel_round(
+            inc_rid, deg, key, s_alive, core, order, level, rounds,
             scatter=scatter, fused_round=fused_round)
         if hierarchy and n_s > 0:
             la, lb, last = round_links(inc_rid, a_mask, last)
@@ -413,8 +409,8 @@ def dense_coreness(problem: NucleusProblem, schedule: PeelSchedule, *,
         if fused_kernel:
             offsets, members = _round_plan(problem)
 
-            def fused_round(deg, peeled, core, order, level, rnd):
-                return fused_peel_round(offsets, members, deg, peeled, core,
+            def fused_round(deg, key, core, order, level, rnd):
+                return fused_peel_round(offsets, members, deg, key, core,
                                         order, level, rnd)
         else:
             plan_rids, plan_sids = _scatter_plan(problem)

@@ -1,22 +1,26 @@
 // One whole peel round of the nucleus decomposition, one launch per round.
 //
 // Replaces the TPU kernel repro/kernels/peel_round.py::fused_peel_round
-// (:142; body _round_kernel :93).  For each r-clique r, over its CSR edges e
-// in [offsets[r], offsets[r+1]):
+// (:142; body _round_kernel :93).  The round state is (deg, key, core,
+// order) with key = peeled ? kPeeled : deg (kPeeled = INT32_MAX; a live
+// deg is always below it).  For each r-clique r, over its CSR edges e in
+// [offsets[r], offsets[r+1]):
 //   dead(e) = no member of e's s-clique peeled before this round
 //           & some member peeled before or at this round (deg <= level)
 // and then, with delta[r] = #dead edges of r and a = !peeled & deg <= level:
 //   deg'   = (peeled | a) ? deg : deg - delta
-//   peeled'= peeled | a,   core' = a ? level : core,   order' = a ? rnd : order
+//   key'   = (peeled | a) ? kPeeled : deg',
+//   core'  = a ? level : core,   order' = a ? rnd : order
 //
 // Bound on Hopper: memory, and only what the round needs.  deg' ignores
 // delta for an r-clique peeled before the round or in it, so only the edges
 // of the r-cliques that are live and survive the round ("needed") are read:
-// their member rows (C int32 each) and each member's deg and peeled (2C
-// int32 at scattered addresses), beside the state stream (the offsets and
-// 4 + 4 int32 per r-clique in and out).  On the smoke graph an r-clique has
-// about 3 edges (hundreds on hubs); ~11 % of the r-cliques are needed in an
-// average round, and they hold ~45 % of the edges.  Design:
+// their member rows (C int32 each) and each member's key (one int32 at a
+// scattered address, a re-read of the key stream), beside the state stream
+// (the offsets and 4 + 4 int32 per r-clique in and out).  On the smoke
+// graph an r-clique has about 3 edges (hundreds on hubs); ~11 % of the
+// r-cliques are needed in an average round, and they hold ~45 % of the
+// edges.  Design:
 //
 //   * a block of 128 threads owns 128 consecutive r-cliques, one a thread:
 //     each reads its own state (coalesced) and decides whether it is
@@ -28,27 +32,21 @@
 //     needed edge whatever the run lengths (1 to 100,000 and more), and
 //     neighbouring lanes read neighbouring member rows.  A lane finds its
 //     edge's r-clique by a binary search of the scan in shared memory;
+//   * a member's one gather is its key: key == kPeeled says "peeled before
+//     the round", key <= level "peeled at it" (a live key is its deg);
 //   * per warp step, a ballot of the dead flags and one of the lanes that
 //     start an r-clique's run within the step give each run's dead count by
 //     one popcount, added to the r-clique's counter in shared memory.  The
 //     counts are integers, so the order of the adds cannot change them: the
 //     result is deterministic, and deg' is written once, by its owner;
 //   * the outputs are separate buffers: every dead test reads the PRE-round
-//     deg/peeled of other r-cliques.
+//     key of other r-cliques.
 //
 // A block whose needed runs are very long walks them alone (one run of
 // 100,000 edges is ~800 steps of one block); the other blocks are not held
-// up.  Blocks of 64, 128, 256 and 512 threads, a walk over every edge of
-// the block's r-cliques that gathers only for the needed ones (no
-// compaction), and one packed gather key (peeled ? -1 : deg) per member
-// were timed against each other over the smoke cell's rounds on the H100:
-// 128 threads were the fastest of the sizes and the compaction beat the
-// flat walk.  The packed key was faster on the kernel alone, but it is
-// exact only where every live deg and the level are >= 0, which the
-// wrapper's contract does not promise, and was left out.  The one-hot MXU
-// contraction and the scalar-prefetch chunk windows of the TPU kernel have
-// no counterpart: the CSR offsets give each r-clique its edges, and the
-// scan gives each lane its edge.
+// up.  The one-hot MXU contraction and the scalar-prefetch chunk windows of
+// the TPU kernel have no counterpart: the CSR offsets give each r-clique
+// its edges, and the scan gives each lane its edge.
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,39 +54,33 @@ namespace {
 constexpr int kThreads = 128;  // r-cliques of a block, and its lanes
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPeeled = 0x7fffffff;  // the key of a peeled r-clique
 
 // edge's s-clique (member row `row`) dies this round: no member peeled
 // before the round, some member peeled before or at it; a pad member -1
-// reads as already peeled.  kC > 0 fixes C at compile time.
-template <int kC>
+// reads as already peeled
 __device__ __forceinline__ bool edge_dead(const int* __restrict__ row, int C,
-                                          const int* __restrict__ deg,
-                                          const int* __restrict__ peeled,
+                                          const int* __restrict__ key,
                                           int level) {
-  const int n = kC > 0 ? kC : C;
   bool was = false, gone = false;
 #pragma unroll 4
-  for (int c = 0; c < n; ++c) {
+  for (int c = 0; c < C; ++c) {
     const int m = __ldg(row + c);
-    const int mc = m < 0 ? 0 : m;  // every member is gathered, pads at 0
-    const bool pad = m < 0;
-    const bool p = __ldg(peeled + mc) > 0;
-    const bool low = __ldg(deg + mc) <= level;
-    was |= pad | p;
-    gone |= pad | p | low;
+    const int k = __ldg(key + (m < 0 ? 0 : m));  // pads gather at 0
+    was |= m < 0 || k == kPeeled;
+    gone |= k <= level;
   }
   return !was && gone;
 }
 
-template <int kC>
 __global__ void __launch_bounds__(kThreads)
 peel_round_kernel(const int* __restrict__ offsets,
                   const int* __restrict__ members, int C,
                   const int* __restrict__ deg,
-                  const int* __restrict__ peeled,
+                  const int* __restrict__ key,
                   const int* __restrict__ core,
                   const int* __restrict__ order,
-                  int* __restrict__ deg_out, int* __restrict__ peeled_out,
+                  int* __restrict__ deg_out, int* __restrict__ key_out,
                   int* __restrict__ core_out, int* __restrict__ order_out,
                   int n_r, int level, int rnd) {
   __shared__ int s_first[kThreads];  // first plan edge of each r-clique
@@ -99,15 +91,15 @@ peel_round_kernel(const int* __restrict__ offsets,
   const long long r = (long long)blockIdx.x * kThreads + tid;
   const bool mine = r < n_r;
 
-  // own state; the peel tests are the reference's (peeled > 0 reads as
-  // peeled, peeled == 0 as live)
-  int d = 0, p = 1, e0 = 0, cnt = 0;
+  // own state
+  int d = 0, e0 = 0, cnt = 0;
+  bool p = true;
   if (mine) {
     d = deg[r];
-    p = peeled[r];
+    p = key[r] == kPeeled;
   }
-  const bool a = mine && p == 0 && d <= level;
-  const bool newp = p > 0 || a;
+  const bool a = mine && !p && d <= level;
+  const bool newp = p || a;
   if (mine && !newp) {  // needed: deg' takes its dead count
     e0 = offsets[r];
     cnt = offsets[r + 1] - e0;
@@ -148,7 +140,7 @@ peel_round_kernel(const int* __restrict__ offsets,
         if (s_excl[t + step] <= k) t += step;
       own = t;
       const long long e = (long long)s_first[t] + (k - s_excl[t]);
-      dead = edge_dead<kC>(members + e * C, C, deg, peeled, level);
+      dead = edge_dead(members + e * C, C, key, level);
     }
     // each run's part of this warp's 32 entries starts at a `head` lane
     // and ends before the next one
@@ -167,8 +159,9 @@ peel_round_kernel(const int* __restrict__ offsets,
   __syncthreads();
 
   if (mine) {
-    deg_out[r] = newp ? d : d - s_dead[tid];
-    peeled_out[r] = newp ? 1 : 0;
+    const int d_new = newp ? d : d - s_dead[tid];
+    deg_out[r] = d_new;
+    key_out[r] = newp ? kPeeled : d_new;
     core_out[r] = a ? level : core[r];
     order_out[r] = a ? rnd : order[r];
   }
@@ -177,20 +170,15 @@ peel_round_kernel(const int* __restrict__ offsets,
 }  // namespace
 
 extern "C" int repro_peel_round(const int* offsets, const int* members, int C,
-                                const int* deg, const int* peeled,
+                                const int* deg, const int* key,
                                 const int* core, const int* order,
-                                int* deg_out, int* peeled_out, int* core_out,
+                                int* deg_out, int* key_out, int* core_out,
                                 int* order_out, int n_r, int level, int rnd,
                                 cudaStream_t stream) {
   if (n_r <= 0) return (int)cudaSuccess;
   const long long blocks = ((long long)n_r + kThreads - 1) / kThreads;
-  if (C == 3)  // (2,3) and (1,3): the main path
-    peel_round_kernel<3><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        offsets, members, C, deg, peeled, core, order, deg_out, peeled_out,
-        core_out, order_out, n_r, level, rnd);
-  else
-    peel_round_kernel<0><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        offsets, members, C, deg, peeled, core, order, deg_out, peeled_out,
-        core_out, order_out, n_r, level, rnd);
+  peel_round_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      offsets, members, C, deg, key, core, order, deg_out, key_out, core_out,
+      order_out, n_r, level, rnd);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,8 @@ from repro_torch.graph.generators import barabasi_albert, golden_suite
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.peel_round import fused_peel_round, \
-    peel_round_plain
+from repro_torch.kernels.peel_round import (fused_peel_round, peel_key,
+                                            peel_round_plain)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
 from repro_torch.kernels.tricount import (tricount_oriented,
                                           tricount_oriented_plain,
@@ -38,6 +38,13 @@ def t(x):
     return torch.tensor(np.array(x))
 
 
+def round_state(deg, peeled, core, order):
+    """(deg, key, core, order) int32 tensors from numpy arrays."""
+    deg, peeled, core, order = (t(x.astype(np.int32))
+                                for x in (deg, peeled, core, order))
+    return [deg, peel_key(deg, peeled), core, order]
+
+
 def random_round(rng, n_r, E, C):
     """A rid-sorted CSR plan (5% pad members) + a random round state."""
     rids = np.sort(rng.integers(0, n_r, E)).astype(np.int32)
@@ -45,9 +52,9 @@ def random_round(rng, n_r, E, C):
     if E:
         members[rng.random((E, C)) < 0.05] = -1
     offsets = np.searchsorted(rids, np.arange(n_r + 1)).astype(np.int32)
-    state = [rng.integers(0, 12, n_r), rng.integers(0, 2, n_r),
-             rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r)]
-    return [t(offsets), t(members)] + [t(x.astype(np.int32)) for x in state]
+    return [t(offsets), t(members)] + round_state(
+        rng.integers(0, 12, n_r), rng.integers(0, 2, n_r),
+        rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r))
 
 
 @pytest.mark.cuda
@@ -72,8 +79,8 @@ def round_states(rng, n_r, level):
     r-clique peeled, every one dying (deg <= level), none changing (every
     deg above level, so no s-clique dies)."""
     def draw(deg, peeled):
-        return [t(x.astype(np.int32)) for x in (
-            deg, peeled, rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r))]
+        return round_state(deg, peeled, rng.integers(-1, 9, n_r),
+                           rng.integers(-1, 9, n_r))
     yield "random", draw(rng.integers(0, 12, n_r), rng.integers(0, 2, n_r))
     yield "all peeled", draw(rng.integers(0, 12, n_r), np.ones(n_r))
     yield "all dying", draw(rng.integers(0, level + 1, n_r), np.zeros(n_r))
@@ -112,7 +119,7 @@ def test_peel_round_edges_on_card(cuda_device):
                 want = peel_round_plain(*args, level, 3)
                 got = fused_peel_round(*[a.to(cuda_device) for a in args],
                                        level, 3)
-                for name, g, w in zip(("deg", "peeled", "core", "order"),
+                for name, g, w in zip(("deg", "key", "core", "order"),
                                       got, want):
                     assert torch.equal(g.cpu(), w), (what, state_name,
                                                      level, name)

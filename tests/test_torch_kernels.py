@@ -6,9 +6,10 @@ version on CPU tensors) vs the same oracles.  Integer outputs must be
 equal element for element; float32 segment sums agree to 1e-5 relative
 (the sums are taken in another order).
 
-The states the CUDA round kernel skips (peeled before the round or in
-it) and the tricount kernel's extreme shapes and densities have cases of
-their own.  The CUDA kernels themselves are held to these plain versions by
+The round wrapper takes the reference's peeled flags packed into its key
+(``peel_key``).  The states the CUDA round kernel skips (peeled before the
+round or in it) are cases of the round tests, and the tricount kernel's
+extreme shapes and densities have cases of their own.  The CUDA kernels themselves are held to these plain versions by
 tests/test_torch_cuda.py (on a card) and ``chip_smoke.py``.
 """
 import numpy as np
@@ -22,7 +23,8 @@ from repro.kernels.peel_round import (chunk_windows, fused_peel_round as
 from repro.kernels.segment_sum import segment_sum_sorted, sorted_ids_plan
 
 from repro_torch.kernels import launch_counts, ref
-from repro_torch.kernels.peel_round import fused_peel_round
+from repro_torch.kernels.peel_round import (PEELED, fused_peel_round,
+                                            peel_key)
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.kernels.tricount import tricount_oriented, tricount_per_edge
 
@@ -33,22 +35,49 @@ def t(x):
     return torch.tensor(np.array(x))
 
 
-def random_round(rng, n_r, E, C, pad_members=True):
-    """A rid-sorted plan + a consistent random round state."""
-    rids = np.sort(rng.integers(0, n_r, E)).astype(np.int32)
-    members = rng.integers(0, n_r, (E, C)).astype(np.int32)
-    if pad_members and E:
-        members[rng.random((E, C)) < 0.05] = -1
-    deg = rng.integers(0, 12, n_r).astype(np.int32)
-    peeled = rng.integers(0, 2, n_r).astype(np.int32)
-    core = rng.integers(-1, 9, n_r).astype(np.int32)
-    order = rng.integers(-1, 9, n_r).astype(np.int32)
-    return rids, members, (deg, peeled, core, order)
+def random_round(rng, n_r, E, C, kind="random"):
+    """A rid-sorted plan + a consistent random round state, or one of the
+    states the CUDA round kernel's skip rests on: an r-clique peeled before
+    the round, or peeled in it (deg <= level), keeps its deg whatever its
+    edges say, so the kernel never reads them.  "all peeled" and "all
+    dying" (deg < 6, so at every level from 6 on) leave nothing to walk;
+    "long runs" adds one 2,000-edge run to the E random edges."""
+    rids = rng.integers(0, n_r, E)
+    if kind == "long runs":
+        rids = np.concatenate([rids, np.full(2000, n_r // 2)])
+    rids = np.sort(rids).astype(np.int32)
+    members = rng.integers(0, n_r, (rids.size, C)).astype(np.int32)
+    if rids.size:
+        members[rng.random(members.shape) < 0.05] = -1
+    deg = rng.integers(0, 12, n_r)
+    peeled = rng.integers(0, 2, n_r)
+    if kind == "all peeled":
+        peeled[:] = 1
+    elif kind == "all dying":
+        peeled[:] = 0
+        deg = rng.integers(0, 6, n_r)
+    state = tuple(x.astype(np.int32) for x in (
+        deg, peeled, rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r)))
+    return rids, members, state
 
 
 def offsets_of(rids, n_r):
     return np.searchsorted(rids, np.arange(n_r + 1), side="left").astype(
         np.int32)
+
+
+def port_round(rids, members, state, level, rnd):
+    """The port's wrapper on the reference's round state (deg, peeled, core,
+    order): peeled goes in packed into the key and comes out unpacked, and
+    the key out must be the packing of deg and peeled out."""
+    n_r = state[0].size
+    deg, peeled, core, order = (t(x) for x in state)
+    d, key, c, o = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
+                                    deg, peel_key(deg, peeled), core, order,
+                                    level, rnd)
+    p = (key == PEELED).to(torch.int32)
+    assert torch.equal(key, peel_key(d, p))
+    return d, p, c, o
 
 
 def assert_round(got, want):
@@ -57,34 +86,45 @@ def assert_round(got, want):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("n_r,E,C", [(1, 1, 3), (50, 200, 3), (97, 513, 4),
-                                     (33, 0, 3), (64, 300, 2)])
-def test_peel_round_ref_and_wrapper_match_reference(n_r, E, C):
+def assert_skipped_deg_kept(got, state, level):
+    """deg' == deg for every r-clique peeled before or in the round."""
+    deg, peeled = state[0], state[1]
+    done = (peeled > 0) | (deg <= level)
+    np.testing.assert_array_equal(np.asarray(got[0])[done], deg[done])
+
+
+@pytest.mark.parametrize("n_r,E,C,kind", [
+    (1, 1, 3, "random"), (50, 200, 3, "random"), (97, 513, 4, "random"),
+    (33, 0, 3, "random"), (64, 300, 2, "random"), (60, 150, 3, "all peeled"),
+    (60, 150, 3, "all dying"), (40, 80, 3, "long runs")])
+def test_peel_round_ref_and_wrapper_match_reference(n_r, E, C, kind):
     rng = np.random.default_rng(n_r * 1000 + E)
-    rids, members, state = random_round(rng, n_r, E, C)
+    rids, members, state = random_round(rng, n_r, E, C, kind)
     # pad edges (id = n_r, members -1) after the real ones, as the
     # reference's plan lays them out
     ids_pad = np.concatenate([rids, np.full(7, n_r, np.int32)])
     mem_pad = np.concatenate([members, np.full((7, C), -1, np.int32)])
     for level in (0, 3, 7, 11):
         want = jref.peel_round_ref(ids_pad, mem_pad, *state, level, 5)
+        assert_skipped_deg_kept(want, state, level)
         got = ref.peel_round_ref(t(ids_pad), t(mem_pad),
                                  *(t(x) for x in state), level, 5)
         assert_round(got, want)
         before = dict(launch_counts)
-        wrapped = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
-                                   *(t(x) for x in state), level, 5)
+        wrapped = port_round(rids, members, state, level, 5)
         assert launch_counts == before  # CPU tensors: plain, no launch
         assert_round(wrapped, want)
 
 
-@pytest.mark.parametrize("n_r,E", [(50, 65), (130, 400)])
-def test_peel_round_matches_pallas_interpret(n_r, E):
+@pytest.mark.parametrize("n_r,E,kind", [
+    (50, 65, "random"), (130, 400, "random"), (60, 150, "all peeled"),
+    (60, 150, "all dying"), (40, 80, "long runs")])
+def test_peel_round_matches_pallas_interpret(n_r, E, kind):
     """The Pallas megakernel (interpret mode) on its padded plan vs the
     port's wrapper on the CSR plan of the same edges."""
     rng = np.random.default_rng(E)
     block_n, chunk_e = 32, 64
-    rids, members, state = random_round(rng, n_r, E, 3)
+    rids, members, state = random_round(rng, n_r, E, 3, kind)
     ids_p, mem_p, n_r_pad, max_chunks = peel_round_plan(
         rids, members, n_r, block_n=block_n, chunk_e=chunk_e)
     ids_p, mem_p = jnp.asarray(ids_p), jnp.asarray(mem_p)
@@ -97,91 +137,9 @@ def test_peel_round_matches_pallas_interpret(n_r, E):
             ids_p, mem_p, *(jnp.asarray(x) for x in padded),
             jnp.int32(level), jnp.int32(3), c0, nch, block_n=block_n,
             chunk_e=chunk_e, max_chunks=max_chunks, interpret=True)
-        got = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
-                               *(t(x) for x in state), level, 3)
-        assert_round(got, [np.asarray(w)[:n_r] for w in want])
-
-
-SKIP_LEVEL = 5
-
-
-def skip_round(kind, rng):
-    """(rids, members, state) at the states the CUDA kernel's skip rests on:
-    an r-clique peeled before the round, or peeled in it (deg <= level),
-    keeps its deg whatever its edges say, so the kernel never reads them.
-    "all peeled" and "all dying" leave nothing to walk; "long runs" puts
-    one 2,000-edge run beside runs of 1 to 3."""
-    if kind == "long runs":
-        counts = rng.integers(1, 4, 40)
-        counts[17] = 2000
-    else:
-        counts = rng.integers(0, 6, 60)
-    n_r = counts.size
-    rids = np.repeat(np.arange(n_r), counts).astype(np.int32)
-    members = rng.integers(0, n_r, (rids.size, 3)).astype(np.int32)
-    members[rng.random(members.shape) < 0.05] = -1
-    deg = rng.integers(0, 12, n_r)
-    peeled = rng.integers(0, 2, n_r)
-    if kind == "all peeled":
-        peeled[:] = 1
-    elif kind == "all dying":
-        peeled[:] = 0
-        deg = rng.integers(0, SKIP_LEVEL + 1, n_r)
-    state = tuple(x.astype(np.int32) for x in (
-        deg, peeled, rng.integers(-1, 9, n_r), rng.integers(-1, 9, n_r)))
-    return rids, members, state
-
-
-def assert_skipped_deg_kept(got, state):
-    """deg' == deg for every r-clique peeled before or in the round."""
-    deg, peeled = state[0], state[1]
-    done = (peeled > 0) | (deg <= SKIP_LEVEL)
-    np.testing.assert_array_equal(np.asarray(got[0])[done], deg[done])
-
-
-@pytest.mark.parametrize("kind", ["all peeled", "all dying", "long runs"])
-def test_peel_round_skip_states_match_reference(kind):
-    """The wrapper (its plain version on CPU) and the port's oracle vs the
-    reference's oracle at the skip states; deg kept where the round skips."""
-    rng = np.random.default_rng(len(kind))
-    rids, members, state = skip_round(kind, rng)
-    n_r = state[0].size
-    want = jref.peel_round_ref(rids, members, *state, SKIP_LEVEL, 2)
-    assert_skipped_deg_kept(want, state)
-    got = ref.peel_round_ref(t(rids), t(members), *(t(x) for x in state),
-                             SKIP_LEVEL, 2)
-    assert_round(got, want)
-    wrapped = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
-                               *(t(x) for x in state), SKIP_LEVEL, 2)
-    assert_round(wrapped, want)
-    if kind != "long runs":
-        np.testing.assert_array_equal(wrapped[0].numpy(), state[0])
-
-
-@pytest.mark.parametrize("kind", ["all peeled", "all dying", "long runs"])
-def test_peel_round_skip_states_match_pallas_interpret(kind):
-    """The Pallas megakernel (interpret mode) vs the port's wrapper at the
-    skip states."""
-    rng = np.random.default_rng(10 + len(kind))
-    block_n, chunk_e = 32, 64
-    rids, members, state = skip_round(kind, rng)
-    n_r = state[0].size
-    ids_p, mem_p, n_r_pad, max_chunks = peel_round_plan(
-        rids, members, n_r, block_n=block_n, chunk_e=chunk_e)
-    ids_p, mem_p = jnp.asarray(ids_p), jnp.asarray(mem_p)
-    pad = n_r_pad - n_r
-    padded = [np.concatenate([x, np.full(pad, fill, np.int32)])
-              for x, fill in zip(state, (0, 1, -1, -1))]
-    c0, nch = chunk_windows(ids_p, n_r_pad, block_n, chunk_e, max_chunks)
-    want = j_fused_peel_round(
-        ids_p, mem_p, *(jnp.asarray(x) for x in padded),
-        jnp.int32(SKIP_LEVEL), jnp.int32(1), c0, nch, block_n=block_n,
-        chunk_e=chunk_e, max_chunks=max_chunks, interpret=True)
-    want = [np.asarray(w)[:n_r] for w in want]
-    assert_skipped_deg_kept(want, state)
-    got = fused_peel_round(t(offsets_of(rids, n_r)), t(members),
-                           *(t(x) for x in state), SKIP_LEVEL, 1)
-    assert_round(got, want)
+        want = [np.asarray(w)[:n_r] for w in want]
+        assert_skipped_deg_kept(want, state, level)
+        assert_round(port_round(rids, members, state, level, 3), want)
 
 
 def tricount_input(n, density, seed):
