@@ -36,7 +36,18 @@ a non-zero exit):
   6. card vs CPU on a ~20k-vertex graph (exact and approx) and the golden
      fixtures of tests/golden on the card, eager and chunked (fast and
      sparse);
-  7. LM inference: flash attention vs its plain twin at the model's head
+  7. every single-device configuration of decompose(): (1,2) on the smoke
+     graph through the k-core lane (the segment-sum kernel, one launch a
+     round, no megakernel) and with use_kernel=True through the generic
+     engine on the megakernel, bit-identical, and the segment sum timed
+     at the lane's plan; the gather backend at (2,3) and backend='auto'
+     at a 4 GiB budget (dense/fused on the chunked build), each
+     bit-identical to phase 3; dense/replay and dense/two_phase at (2,3)
+     on the smoke graph, their trees timed and their cuts equal to phase
+     3's (replay's forest and tree bit-identical); every other non-sharded (method, backend,
+     hierarchy) on the SMALL_N graph, card == CPU with cuts at four
+     levels equal to dense/fused's; the JSON artifact's round trip;
+  8. LM inference: flash attention vs its plain twin at the model's head
      shapes (minicpm-2b, minitron-4b's GQA, stablelm-12b's head dim 160,
      ragged, f32, non-causal, Sq < Sk, the wgmma kernel's block and tile
      edges, B > 1) and at the prefill shape (the twin in query-row
@@ -49,7 +60,7 @@ a non-zero exit):
      minitron-4b smoke configs on the card and the CPU (equal greedy
      tokens); ``serve_lm`` of minicpm-2b at full width on the card (decode
      runs the online scan: no flash launch);
-  8. a JSON line of per-kernel numbers, the card's name and power limit,
+  9. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -402,7 +413,7 @@ def phase_kernels(problem, seed: int):
     ss_plain = cuda_ms(lambda: segment_sum_plain(data, rids, n_r), 5)
     ss_lib = cuda_ms(lambda: torch.zeros((n_r, 1), dtype=torch.int32,
                                          device=dev).index_add_(
-                                             0, rids.long(), data), 5)
+                                             0, rids, data), 5)
     ss_bytes = 4 * (E + E + n_r)
     rows.append({"name": "segment_sum", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
@@ -560,6 +571,246 @@ def paired_build_s(g, budget: int):
         torch.cuda.synchronize()
         out.append(round(time.perf_counter() - t, 4))
     return out
+
+
+def timed(fn):
+    """(result, wall seconds) of fn(), ending in a device sync."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_lane_kernel(problem12, seed: int):
+    """The segment sum at the k-core lane's shape: data (2m, 1) int32 (a
+    peeled mask gathered by the neighbor slots) summed by the ascending
+    vertex slots, over n vertices (isolated ones are empty segments)."""
+    from repro_torch.core.kcore import kcore_plan
+    from repro_torch.kernels.segment_sum import (segment_sum,
+                                                 segment_sum_plain)
+    vids, nbrs = kcore_plan(problem12)
+    n, E = problem12.n_r, int(vids.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    err = 0
+    for frac in (0.01, 0.5):
+        a = (torch.rand(n, generator=gen, device="cuda") < frac).to(
+            torch.int32)
+        data = torch.index_select(a, 0, nbrs)[:, None]
+        got = segment_sum(data, vids, n)
+        want = segment_sum_plain(data, vids, n)
+        require(torch.equal(got, want), f"segment_sum differs from its "
+                f"plain version at the k-core lane's plan (frac {frac})")
+        err = max(err, int((got - want).abs().max()))
+    ms = cuda_ms(lambda: segment_sum(data, vids, n), 20)
+    plain = cuda_ms(lambda: segment_sum_plain(data, vids, n), 5)
+    lib = cuda_ms(lambda: torch.zeros((n, 1), dtype=torch.int32,
+                                      device="cuda").index_add_(
+                                          0, vids, data), 5)
+    bound = 1e3 * 4 * (E + E + n) / HBM_BYTES_PER_S
+    log(f"[configs] segment_sum at the k-core lane's plan (E={E}, n={n}): "
+        f"equal to plain; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+        f"library_ms={lib:.4f} bound_ms={bound:.4f}")
+    return {"kcore_ms": ms, "kcore_plain_ms": plain, "kcore_library_ms": lib,
+            "kcore_bound_ms": bound, "kcore_max_abs_err": err}
+
+
+# the non-sharded triples phase 7 runs on the SMALL_N graph, card and CPU
+# (dense/fused runs in phase 6, gather/none in phase 7's (b), dense/none in
+# phase 3)
+SWEEP = [(m, b, h) for m in ("exact", "approx")
+         for b, h in (("gather", "replay"), ("gather", "two_phase"),
+                      ("gather", "basic"), ("dense", "replay"),
+                      ("dense", "two_phase"), ("dense", "basic"),
+                      ("nh", "none"), ("nh", "two_phase"),
+                      ("nh", "basic"))
+         if not (m == "approx" and b == "nh")]
+
+
+def phase_configs(g, main, small_fused, seed: int):
+    """Phase 7: every single-device configuration of decompose().
+
+    (a) (1,2) on the smoke graph: the k-core lane (segment-sum launches ==
+    rounds, no megakernel), then use_kernel=True (the generic engine on
+    the megakernel), bit-identical; (b) the gather backend at (2,3),
+    bit-identical to phase 3; (b') dense/replay and dense/two_phase at
+    (2,3), arrays and cuts equal to phase 3's; (c) backend='auto' at a 4 GiB budget:
+    dense/fused on the chunked build, bit-identical to phase 3; (d) every
+    other non-sharded triple on the SMALL_N graph, card == CPU, cuts equal
+    to dense/fused's (``small_fused``: phase 6's dense/fused (card, CPU)
+    decompositions of that graph by method); (e) the artifact's JSON round
+    trip.  Returns the segment-sum row's k-core fields."""
+    from repro_torch import Decomposition, NucleusConfig, decompose
+    from repro_torch.core import build_problem, canonicalize_labels
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    # (a) the k-core lane vs the generic engine on the megakernel
+    p12, build12_s = timed(lambda: build_problem(g, 1, 2))
+    reset_launch_counts()
+    lane, lane_s = timed(lambda: decompose(g, NucleusConfig(r=1, s=2)))
+    lane_counts = dict(launch_counts)
+    require(any(r.startswith("fast lane 'kcore'") for r in lane.plan.reasons),
+            "the (1,2) plan does not record the k-core lane")
+    require(lane_counts["segment_sum"] == lane.rounds and
+            lane_counts["peel_round"] == 0,
+            f"k-core lane launches {lane_counts} over {lane.rounds} rounds")
+    reset_launch_counts()
+    generic, generic_s = timed(lambda: decompose(
+        lane.problem, NucleusConfig(r=1, s=2, use_kernel=True)))
+    generic_counts = dict(launch_counts)
+    require(generic_counts["peel_round"] == generic.rounds and
+            generic_counts["segment_sum"] == 0,
+            f"use_kernel=True at (1,2) launched {generic_counts}")
+    require(lane.rounds == generic.rounds, "(1,2): rounds differ")
+    for name in ("core", "order_round", "uf_parent", "uf_L"):
+        require(np.array_equal(getattr(lane, name), getattr(generic, name)),
+                f"(1,2): {name} differs between the lane and the engine")
+    log(f"[configs] (1,2) on the smoke graph: n_r={lane.n_r} "
+        f"n_s={lane.problem.n_s} rounds={lane.rounds}; k-core lane "
+        f"decompose_s={lane_s:.2f} (build_s={build12_s:.2f}) launches="
+        f"{lane_counts}; use_kernel=True on the built problem "
+        f"decompose_s={generic_s:.2f} launches={generic_counts}; core, "
+        f"order_round, rounds, uf_parent, uf_L bit-identical")
+    row = {"kcore_path": "decompose(g, NucleusConfig(r=1, s=2))",
+           "kcore_launches": lane_counts["segment_sum"]}
+    row.update(phase_lane_kernel(p12, seed))
+    del lane, generic, p12
+    torch.cuda.empty_cache()
+
+    def same_as_main(dec, what, fields):
+        require(dec.rounds == main["rounds"], f"{what}: rounds differ from "
+                f"phase 3")
+        for name in fields:
+            require(np.array_equal(getattr(dec, name), main[name]),
+                    f"{what}: {name} differs from phase 3")
+
+    # (b) the gather backend at (2,3)
+    gat, gat_s = timed(lambda: decompose(
+        g, NucleusConfig(backend="gather", hierarchy="none")))
+    same_as_main(gat, "gather", ("core", "order_round"))
+    log(f"[configs] gather/none at (2,3) on the smoke graph: "
+        f"decompose_s={gat_s:.2f} (build included); core, order_round, "
+        f"rounds equal to phase 3")
+    del gat
+
+    # (b') the host hierarchies at (2,3): dense/replay (the forest replayed
+    # from the peel trace) and dense/two_phase (the per-level sweep), each
+    # on one build, the tree timed apart from the peel
+    p23 = build_problem(g, 2, 3)
+    for h in ("replay", "two_phase"):
+        dec, peel_s = timed(lambda: decompose(p23, NucleusConfig(
+            hierarchy=h)))
+        same_as_main(dec, f"dense/{h}", ("core", "order_round"))
+        tree, tree_s = timed(lambda: dec.tree)
+        if h == "replay":
+            same_as_main(dec, "dense/replay", ("uf_parent", "uf_L"))
+            require(np.array_equal(tree.parent, main["tree_parent"]) and
+                    np.array_equal(tree.level, main["tree_level"]),
+                    "dense/replay: tree differs from phase 3's")
+        t = time.perf_counter()
+        for c, want in main["cuts"].items():
+            require(np.array_equal(canonicalize_labels(dec.cut(c)), want),
+                    f"dense/{h}: cut({c}) differs from phase 3's")
+        cut_s = time.perf_counter() - t
+        log(f"[configs] dense/{h} at (2,3) on the smoke graph: "
+            f"decompose_s={peel_s:.2f} (on the built problem) tree_s="
+            f"{tree_s:.2f} ({tree.n_nodes} nodes) cuts at "
+            f"{sorted(main['cuts'])} {cut_s:.2f} s; core, order_round, "
+            f"rounds{', forest, tree' if h == 'replay' else ''} and cuts "
+            f"equal to phase 3")
+        del dec, tree
+    del p23
+    torch.cuda.empty_cache()
+
+    # (c) backend='auto' under a 4 GiB budget
+    reset_launch_counts()
+    auto, auto_s = timed(lambda: decompose(
+        g, NucleusConfig(backend="auto", memory_budget_bytes=SPARSE_BUDGET)))
+    require((auto.plan.backend, auto.plan.hierarchy) == ("dense", "fused")
+            and auto.config.build == "chunked",
+            f"auto resolved to {auto.plan.backend}/{auto.plan.hierarchy} "
+            f"on build {auto.config.build}")
+    require(launch_counts["peel_round"] == auto.rounds,
+            "auto: megakernel launches != rounds")
+    same_as_main(auto, "auto", ("core", "order_round", "uf_parent", "uf_L"))
+    log(f"[configs] backend='auto', memory_budget_bytes={SPARSE_BUDGET}: "
+        f"decompose_s={auto_s:.2f} (chunked build included), arrays equal "
+        f"to phase 3\n{auto.plan_report()}")
+    del auto
+    torch.cuda.empty_cache()
+
+    # (d) every other non-sharded triple on SMALL_N, card and CPU
+    probs = {"cuda": small_fused["exact"][0].problem,
+             "cpu": small_fused["exact"][1].problem}
+    fused = {m: pair[1] for m, pair in small_fused.items()}
+    levels = {}
+    for m, d in fused.items():
+        lv = np.unique(d.core[d.core > 0])
+        levels[m] = lv[np.linspace(0, lv.size - 1, 4).astype(int)]
+    def with_tree(dec):
+        if dec.has_hierarchy:
+            dec.tree
+        return dec
+    tp_cuts = {}
+    times = []
+    swept = {("exact", "dense", "fused"): small_fused["exact"][0]}
+    for triple in SWEEP:
+        m, b, h = triple
+        cfg = NucleusConfig(method=m, backend=b, hierarchy=h)
+        (d_gpu, t_gpu) = timed(lambda: with_tree(decompose(probs["cuda"],
+                                                           cfg)))
+        t = time.perf_counter()
+        d_cpu = with_tree(decompose(probs["cpu"], cfg, device="cpu"))
+        t_cpu = time.perf_counter() - t
+        what = "/".join(triple)
+        require(d_gpu.rounds == d_cpu.rounds, f"{what}: rounds differ")
+        for name in ("core", "order_round", "peel_value"):
+            a, c = getattr(d_gpu, name), getattr(d_cpu, name)
+            require((a is None and c is None) or np.array_equal(a, c),
+                    f"{what}: {name} differs between card and CPU")
+        require(np.array_equal(d_cpu.core, fused[m].core),
+                f"{what}: core differs from dense/fused")
+        if h != "none":
+            for c in levels[m]:
+                cut = canonicalize_labels(d_gpu.cut(int(c)))
+                require(np.array_equal(
+                    cut, canonicalize_labels(d_cpu.cut(int(c)))),
+                    f"{what}: cut({c}) differs between card and CPU")
+                # approx two_phase/basic trees are built over the clipped
+                # estimates, fused/replay over the raw bucket values
+                if m == "exact" or h == "replay":
+                    want = canonicalize_labels(fused[m].cut(int(c)))
+                else:
+                    want = tp_cuts.setdefault((m, int(c)), cut)
+                require(np.array_equal(cut, want),
+                        f"{what}: cut({c}) differs from its reference tree")
+        times.append(f"{what} {t_gpu:.2f}/{t_cpu:.2f}")
+        swept[triple] = d_gpu
+    log(f"[configs] SMALL_N n_r={probs['cpu'].n_r}: {len(SWEEP)} triples "
+        f"card == CPU, cuts at levels {levels} equal to dense/fused's "
+        f"(approx two_phase/basic: to each other); card/CPU s (tree "
+        f"included): "
+        f"{', '.join(times)}")
+
+    # (e) the artifact
+    for triple in (("exact", "dense", "fused"), ("exact", "nh",
+                                                  "two_phase")):
+        live = swept[triple]
+        (blob, json_s) = timed(live.to_json)
+        loaded = Decomposition.from_json(blob)
+        require(loaded.to_json() == blob, f"{triple}: JSON round trip "
+                f"is not byte for byte")
+        for c in levels["exact"]:
+            require(np.array_equal(loaded.cut(int(c)), live.cut(int(c))),
+                    f"{triple}: loaded cut({c}) differs")
+            a, z = loaded.nuclei(int(c)), live.nuclei(int(c))
+            require(sorted(a) == sorted(z) and all(
+                np.array_equal(a[k].vertices, z[k].vertices) and
+                a[k].density == z[k].density for k in a),
+                f"{triple}: loaded nuclei({c}) differ")
+        log(f"[configs] {'/'.join(triple)} artifact: {len(blob)} bytes in "
+            f"{json_s:.2f} s, round trip byte for byte, cut/nuclei equal")
+    return row
 
 
 def flash_inputs(gen, B, H, Hkv, Sq, Sk, D, dtype):
@@ -981,10 +1232,12 @@ def main() -> int:
     log(f"[main] tree: {tree.n_nodes} nodes ({tree.n_internal} internal) "
         f"in {tree_s:.2f} s; {levels.size} distinct core levels, max "
         f"{int(levels.max()) if levels.size else 0}")
+    main_cuts = {}
     for c in np.quantile(levels, [0.25, 0.5, 0.9]).astype(int) \
             if levels.size else []:
         t = time.perf_counter()
         labels = dec.cut(int(c))
+        main_cuts[int(c)] = canonicalize_labels(labels)
         nuc = dec.nuclei(int(c))
         q_s = time.perf_counter() - t
         require(set(np.unique(labels[labels >= 0]).tolist()) == set(nuc),
@@ -1024,9 +1277,13 @@ def main() -> int:
         "to the megakernel path")
     rows[0]["launches"] = main_counts["peel_round"]
     rows[0]["path"] = "decompose(g, NucleusConfig())"
+    phase3 = {"rounds": dec.rounds, "cuts": main_cuts,
+              "tree_parent": tree.parent, "tree_level": tree.level}
+    phase3.update({name: getattr(dec, name) for name in (
+        "core", "order_round", "peel_value", "uf_parent", "uf_L")})
     rows[1]["launches"] = scatter_counts["segment_sum"]
     rows[1]["path"] = "dense_coreness(fused_kernel=False)"
-    del dec, p, core4, order4, parent4, L4, core_t
+    del dec, p, core4, order4, parent4, L4, core_t, tree
     torch.cuda.empty_cache()
     phase_t = log_phase(4, phase_t)
 
@@ -1105,6 +1362,7 @@ def main() -> int:
     # -- phase 6: card vs CPU, and the golden fixtures on the card ---------
     small = community_power_law(SMALL_N, seed=args.seed + 1,
                                 device="cpu")
+    small_fused = {}
     for method in ("exact", "approx"):
         cfg = NucleusConfig(method=method, delta=0.1)
         t = time.perf_counter()
@@ -1124,6 +1382,7 @@ def main() -> int:
             require(np.array_equal(canonicalize_labels(d_gpu.cut(int(c))),
                                    canonicalize_labels(d_cpu.cut(int(c)))),
                     f"{method}: cut({c}) differs between card and CPU")
+        small_fused[method] = (d_gpu, d_cpu)
         log(f"[cpu-vs-card] {method}: n={small.n} m={small.m} "
             f"n_r={d_cpu.n_r} rounds={d_cpu.rounds} card_s={t_gpu:.2f} "
             f"cpu_s={t_cpu:.2f}: all arrays and cuts equal")
@@ -1155,13 +1414,20 @@ def main() -> int:
         f"partitions equal on the card")
     phase_t = log_phase(6, phase_t)
 
-    # -- phase 7: LM inference ------------------------------------------------
-    rows.append(phase_lm(args.seed))
+    # -- phase 7: every single-device configuration ------------------------
+    rows[1].update(phase_configs(g, phase3, small_fused, args.seed))
+    del phase3, small_fused
     phase_t = log_phase(7, phase_t)
 
-    # -- phase 8: the result lines ------------------------------------------
+    # -- phase 8: LM inference ------------------------------------------------
+    rows.append(phase_lm(args.seed))
+    phase_t = log_phase(8, phase_t)
+
+    # -- phase 9: the result lines ------------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
+    require(rows[1]["kcore_launches"] > 0,
+            "segment_sum never launched on the k-core lane")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

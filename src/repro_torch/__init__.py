@@ -14,7 +14,9 @@ plain-torch versions.
 from .device import resolve_device
 from .core.api import (ConfigError, Decomposition, Nucleus, NucleusConfig,
                        decompose)
+from .core.backends import Plan
 from .core.incidence import NucleusProblem, build_problem
 
 __all__ = ["resolve_device", "ConfigError", "Decomposition", "Nucleus",
-           "NucleusConfig", "decompose", "NucleusProblem", "build_problem"]
+           "NucleusConfig", "Plan", "decompose", "NucleusProblem",
+           "build_problem"]

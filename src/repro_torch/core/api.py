@@ -1,76 +1,105 @@
 """The front door: ``decompose(graph, config) -> Decomposition``.
 
-Counterpart of ``repro.core.api`` for this slice of the port: the dense
-backend, exact or approx peeling, the fused hierarchy or none, the eager
-or the memory-bounded chunked build, one device.  ``Decomposition`` holds
-the results as host numpy arrays and answers ``tree``/``cut(c)``/
-``nuclei(c)`` lazily with caching, as the reference does.  Any
-configuration outside the slice raises ``ConfigError`` naming the value
-as not yet ported (ROADMAP Queue 1).
+Counterpart of ``repro.core.api``: one build-once/query-many artifact,
+coreness plus the join-forest hierarchy, queried at many resolutions
+(Fig. 10).
+
+  * ``NucleusConfig`` captures every axis in one frozen, validated record:
+    (r, s), exact or approx peeling, the backend (``dense``, ``gather``,
+    ``nh`` or ``auto``), the hierarchy strategy (``none``, ``fused``,
+    ``replay``, ``two_phase``, ``basic`` or ``auto``), the kernel knob and
+    the build.  Backend legality is derived from the registry's capability
+    declarations (``backends.check_capabilities``), so the legal triples
+    and their messages are the reference's.
+  * ``decompose`` builds the incidence structure on the device (``None``:
+    the card), lets the planner resolve ``auto`` axes
+    (``backends.resolve_plan``), runs the registered backend and returns a
+    ``Decomposition``.
+  * ``Decomposition`` holds the results as host numpy arrays and answers
+    ``tree``/``cut(c)``/``nuclei(c)`` lazily with caching.  ``to_json()``/
+    ``from_json()`` round-trip the artifact in the reference's format
+    (``JSON_FORMAT``, version 2, version 1 readable), so an artifact of
+    either package loads in the other.
+
+Not ported yet (``NOT_PORTED``; each raises ``ConfigError`` naming it): the
+sharded backend and build, ``compress``, ``build_shards`` (ROADMAP Queue
+1.9) and ``Decomposition.update`` (Queue 1.8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import json
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
 from ..graph.container import Graph
-from .hierarchy import HierarchyTree
+from . import backends as backend_registry
+from .backends import (AUTO, BACKENDS, HIERARCHIES, METHODS, ConfigError,
+                       Plan, not_ported)
+from .hierarchy import (HierarchyTree, build_hierarchy_basic,
+                        build_hierarchy_levels)
 from .incidence import BUILDS, NucleusProblem, build_problem
-from .interleaved import construct_tree_efficient, link_state_from_forest
+from .interleaved import (construct_tree_efficient, forest_from_trace,
+                          link_state_from_forest)
 from .nuclei import edge_densities, nucleus_vertex_sets
-from .peel import approx_coreness, exact_coreness
+from .peel import PeelResult
 
-METHODS = ("exact", "approx")
-BACKENDS = ("dense",)
-HIERARCHIES = ("fused", "none")
-# values the reference accepts that this slice does not run yet
-NOT_PORTED = {
-    "backend": ("gather", "sharded", "nh", "auto"),
-    "hierarchy": ("replay", "two_phase", "basic", "auto"),
-    "build": ("sharded",),
-}
+JSON_FORMAT = "repro.nucleus-decomposition"
+JSON_VERSION = 2
+# version 1 artifacts (pre-Plan) load fine: "plan" is simply absent.
+SUPPORTED_JSON_VERSIONS = (1, 2)
 
+# what the reference runs that the port does not yet
+NOT_PORTED = ("backend='sharded'", "build='sharded'", "compress=True",
+              "build_shards", "Decomposition.update()")
 
-class ConfigError(ValueError):
-    """An unsupported ``NucleusConfig`` value (raised by validate())."""
-
-
-def _check_axis(axis: str, value, ported) -> None:
-    if value in ported:
-        return
-    if value in NOT_PORTED.get(axis, ()):
-        raise ConfigError(
-            f"{axis}={value!r} is not yet ported to repro_torch; this slice "
-            f"runs {axis} in {ported}")
-    raise ConfigError(f"{axis}={value!r}; expected one of {ported}")
+__all__ = ["AUTO", "BACKENDS", "HIERARCHIES", "METHODS", "NOT_PORTED",
+           "ConfigError", "Decomposition", "Nucleus", "NucleusConfig",
+           "decompose", "execute_plan", "plan_config", "resolve_problem"]
 
 
 @dataclasses.dataclass(frozen=True)
 class NucleusConfig:
-    """Every axis of a nucleus decomposition this slice runs.
+    """Every axis of a nucleus decomposition, in one validated record.
 
-      r, s       — the (r, s) of the decomposition, 1 <= r < s.
-      method     — "exact" or "approx" (Alg. 2, geometric buckets);
-                   ``delta`` sets the approximation knob.
-      backend    — "dense": the single-device peel engine.
-      hierarchy  — "fused" (LINK fixpoint inside the peel) or "none".
-      use_kernel — the reference's ``use_pallas``: True runs the round on
-                   the hand-written kernels (on CPU tensors, their plain
-                   versions), False on plain torch, and None (default)
-                   resolves to True on CUDA and False on the CPU.
-      build      — incidence builder: "eager" (one-burst expansion) or
-                   "chunked" (memory-bounded source-vertex chunks and a
-                   two-pass count-then-fill assembly; for (2,3) within
-                   budget, the dense count pass on the tricount kernel).
-                   Both are bit-identical.
-      memory_budget_bytes — the chunked build's intermediate-memory
-                   budget (None = a 256 MiB default); sets the chunk size
-                   and decides the (2,3) dense fast path.
+      r, s        — the (r, s) of the decomposition, 1 <= r < s.
+      method      — "exact" or "approx" (Alg. 2, geometric buckets);
+                    ``delta`` sets the approximation knob.
+      backend     — "dense" (the peel engine on the device; (1, 2) takes
+                    the k-core lane unless ``use_kernel=True``), "gather"
+                    (the eager work-efficient host loop), "nh" (the
+                    sequential baseline) or "auto" (the registry planner
+                    picks from the device, the problem size and the
+                    memory budget).  "sharded" is registered but not yet
+                    ported.
+      hierarchy   — "none", "fused" (LINK fixpoint inside the peel loop),
+                    "replay" (host trace replay), "two_phase" (ANH-TE),
+                    "basic" (ANH-BL) or "auto" (the richest strategy the
+                    resolved backend supports).
+      use_kernel  — the reference's ``use_pallas``: True runs the dense
+                    engine's round on the hand-written kernels (on CPU
+                    tensors, their plain versions) and pins the generic
+                    engine at (1, 2); False runs plain torch; None
+                    (default) resolves per device (``engine.
+                    kernel_by_default``: the kernels on CUDA).  It is
+                    written as ``use_pallas`` in ``to_dict()``.
+      mesh        — the sharded backend's device mesh; compress — its
+                    collective's compression (neither is ported yet: only
+                    backend='sharded' takes them).
+      build       — incidence builder: "eager" or "chunked" (memory-
+                    bounded; bit-identical).  "sharded" is not yet ported.
+      memory_budget_bytes — the chunked build's intermediate-memory budget
+                    (None = a 256 MiB default).  With backend='auto' it is
+                    also the planner's memory ceiling: the gather backend
+                    is preferred where the dense engine's per-round working
+                    set would exceed it, and an eager build whose estimated
+                    working set exceeds it is upgraded to 'chunked' before
+                    the incidence structure is built.
       build_chunk_size — explicit source vertices per chunk (overrides the
-                   budget-derived size; pins the sparse chunked path).
+                    budget-derived size; pins the sparse chunked path).
+      build_shards — the sharded builder's worker count (not yet ported).
     """
 
     r: int = 2
@@ -80,25 +109,55 @@ class NucleusConfig:
     backend: str = "dense"
     hierarchy: str = "fused"
     use_kernel: Optional[bool] = None
+    mesh: Optional[Any] = None
+    compress: bool = False
     build: str = "eager"
     memory_budget_bytes: Optional[int] = None
     build_chunk_size: Optional[int] = None
+    build_shards: Optional[int] = None
 
     def validate(self) -> "NucleusConfig":
+        """Reject unsupported combinations with actionable errors.
+
+        Backend x (method, hierarchy, knob) legality is derived from the
+        registry's capability declarations; this method holds the
+        backend-independent axis checks, as the reference's does, and
+        raises "not yet ported" for the build knobs the port lacks.
+        ``backend='auto'``/``hierarchy='auto'`` are accepted here; the
+        planner resolves them at decompose() time.
+        """
         if not 1 <= self.r < self.s:
             raise ConfigError(
                 f"need 1 <= r < s, got (r, s) = ({self.r}, {self.s})")
-        _check_axis("method", self.method, METHODS)
-        _check_axis("backend", self.backend, BACKENDS)
-        _check_axis("hierarchy", self.hierarchy, HIERARCHIES)
-        _check_axis("build", self.build, BUILDS)
+        if self.method not in METHODS:
+            raise ConfigError(
+                f"method={self.method!r}; expected one of {METHODS}")
+        if self.backend != AUTO and \
+                self.backend not in backend_registry.names():
+            raise ConfigError(
+                f"backend={self.backend!r}; expected one of "
+                f"{backend_registry.names() + (AUTO,)}")
+        if self.hierarchy != AUTO and self.hierarchy not in HIERARCHIES:
+            raise ConfigError(
+                f"hierarchy={self.hierarchy!r}; expected one of "
+                f"{HIERARCHIES + (AUTO,)}")
         if self.method == "approx" and not self.delta > 0:
             raise ConfigError(
                 f"method='approx' needs delta > 0, got {self.delta}")
-        # the reference's build-knob rules and messages; its budget is also
-        # legal with backend='auto', which the port does not run
+        backend_registry.check_capabilities(self)
+        if self.compress:
+            raise not_ported("compress=True")
+        if self.build == "sharded":
+            raise not_ported("build='sharded'")
+        if self.build not in BUILDS:
+            raise ConfigError(
+                f"build={self.build!r}; expected one of {BUILDS}")
         if self.memory_budget_bytes is not None:
-            if self.build != "chunked":
+            # with backend='auto' the budget is also the planner's memory
+            # ceiling (and can upgrade the build), so it stays legal there
+            # with build='eager'
+            if self.build not in ("chunked", "sharded") and \
+                    self.backend != AUTO:
                 raise ConfigError(
                     "memory_budget_bytes sizes the chunked/sharded "
                     "incidence builders (or guides backend='auto'); set "
@@ -109,7 +168,7 @@ class NucleusConfig:
                     f"memory_budget_bytes must be positive, got "
                     f"{self.memory_budget_bytes}")
         if self.build_chunk_size is not None:
-            if self.build != "chunked":
+            if self.build not in ("chunked", "sharded"):
                 raise ConfigError(
                     "build_chunk_size is the chunked/sharded builders' "
                     "chunk; set build='chunked'/'sharded' or drop it")
@@ -117,7 +176,43 @@ class NucleusConfig:
                 raise ConfigError(
                     f"build_chunk_size must be positive, got "
                     f"{self.build_chunk_size}")
+        if self.build_shards is not None:
+            raise not_ported("build_shards (the sharded builder's worker "
+                             "count)")
         return self
+
+    @classmethod
+    def legal_combinations(cls) -> List[Tuple[str, str, str]]:
+        """Every (method, backend, hierarchy) triple ``validate()`` accepts
+        — the reference's 29, in its order."""
+        out = []
+        for method in METHODS:
+            for backend in backend_registry.names():  # live registry
+                for hierarchy in HIERARCHIES:
+                    cfg = cls(method=method, backend=backend,
+                              hierarchy=hierarchy)
+                    try:
+                        cfg.validate()
+                    except ConfigError:
+                        continue
+                    out.append((method, backend, hierarchy))
+        return out
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-safe view with the reference's key set: ``use_kernel`` is
+        written as ``use_pallas`` (so the reference's ``from_dict`` reads
+        it) and the mesh, a process-local handle, is dropped."""
+        d = dataclasses.asdict(self)
+        d.pop("mesh")
+        d["use_pallas"] = d.pop("use_kernel")
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "NucleusConfig":
+        d = {k: v for k, v in d.items() if k != "mesh"}
+        if "use_pallas" in d:
+            d["use_kernel"] = d.pop("use_pallas")
+        return cls(**d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,35 +222,72 @@ class Nucleus:
     label: int
     vertices: np.ndarray   # sorted unique vertex ids
     n_r_cliques: int       # r-cliques carrying the nucleus
-    density: float         # |E(S)| / C(|S|, 2)
+    density: float         # |E(S)| / C(|S|, 2); nan if edges unavailable
+
+
+def _ints(x) -> List[int]:
+    return np.asarray(x).reshape(-1).tolist()
+
+
+def _opt_ints(x) -> Optional[List[int]]:
+    return None if x is None else _ints(x)
 
 
 class Decomposition:
     """The build-once/query-many artifact: coreness + hierarchy + queries.
 
-    ``core``/``rounds``/``order_round``/``peel_value``/``uf_parent``/
-    ``uf_L`` are computed by ``decompose()``; ``tree`` is built from the
-    fused join forest on first access, and ``cut(c)``/``nuclei(c)`` are
-    cached per level.
+    The peel (``core``, ``rounds``, the trace and, for hierarchy='fused',
+    the join forest) is computed by ``decompose()``; the rest is lazy and
+    cached:
+
+      .tree      — first access builds the ``HierarchyTree`` from the fused
+                   forest, the trace replay or the two-phase/basic builder.
+      .cut(c)    — first call per level walks the tree; repeats are O(1).
+      .nuclei(c) — vertex sets + densities, derived from the cached cut.
+
+    ``to_json()`` pins the artifact (tree materialized, the inputs the
+    queries need embedded), so ``from_json()`` serves queries with no
+    ``NucleusProblem``.
     """
 
-    def __init__(self, config: NucleusConfig, *, problem: NucleusProblem,
+    def __init__(self, config: NucleusConfig, *,
+                 problem: Optional[NucleusProblem] = None,
                  core: np.ndarray, rounds: int,
-                 order_round: np.ndarray, peel_value: np.ndarray,
+                 order_round: Optional[np.ndarray] = None,
+                 peel_value: Optional[np.ndarray] = None,
                  uf_parent: Optional[np.ndarray] = None,
-                 uf_L: Optional[np.ndarray] = None):
+                 uf_L: Optional[np.ndarray] = None,
+                 tree: Optional[HierarchyTree] = None,
+                 r_cliques: Optional[np.ndarray] = None,
+                 edges: Optional[np.ndarray] = None,
+                 n_vertices: Optional[int] = None,
+                 n_s: Optional[int] = None,
+                 plan: Optional[Plan] = None,
+                 name: Optional[str] = None,
+                 version: int = 0):
         self.config = config
+        self._name = name
+        self._version = int(version)
+        self._plan = plan
         self.problem = problem
         self._core = np.asarray(core)
         self._rounds = int(rounds)
-        self._order_round = np.asarray(order_round)
-        self._peel_value = np.asarray(peel_value)
+        self._order_round = None if order_round is None \
+            else np.asarray(order_round)
+        self._peel_value = self._core if peel_value is None \
+            else np.asarray(peel_value)
         self._uf_parent = None if uf_parent is None else np.asarray(uf_parent)
         self._uf_L = None if uf_L is None else np.asarray(uf_L)
-        self._tree: Optional[HierarchyTree] = None
+        self._tree = tree
+        self._r_cliques = None if r_cliques is None else np.asarray(r_cliques)
+        self._edges = None if edges is None else np.asarray(edges)
+        self._n_vertices = n_vertices
+        self._n_s = n_s
         self._cuts: Dict[int, np.ndarray] = {}
         self._nuclei: Dict[int, Dict[int, Nucleus]] = {}
+        self._link_stats: Optional[Tuple[int, int]] = None
 
+    # -- materialized by decompose() --------------------------------------
     @property
     def core(self) -> np.ndarray:
         """(n_r,) core numbers (approx: clipped practical estimates)."""
@@ -167,8 +299,9 @@ class Decomposition:
         return self._rounds
 
     @property
-    def order_round(self) -> np.ndarray:
-        """(n_r,) round each r-clique peeled — the peel trace."""
+    def order_round(self) -> Optional[np.ndarray]:
+        """(n_r,) round each r-clique peeled — the peel trace (None on
+        backends that do not record it: nh)."""
         return self._order_round
 
     @property
@@ -177,8 +310,39 @@ class Decomposition:
         return self._peel_value
 
     @property
+    def n_r(self) -> int:
+        return int(self._core.shape[0])
+
+    # -- live-artifact identity --------------------------------------------
+    @property
+    def name(self) -> Optional[str]:
+        """The serving-side artifact name (None until published)."""
+        return self._name
+
+    @name.setter
+    def name(self, value: Optional[str]) -> None:
+        self._name = value
+
+    @property
+    def version(self) -> int:
+        """Live-artifact version: 0 at decompose() time (the reference
+        adds one per ``update(delta)``, which is not ported yet)."""
+        return self._version
+
+    @property
+    def has_hierarchy(self) -> bool:
+        return self.config.hierarchy != "none"
+
+    @property
+    def link_stats(self) -> Optional[Tuple[int, int]]:
+        """(links processed, unions) of the host LINK replay — populated
+        only after hierarchy='replay' materializes the tree."""
+        return self._link_stats
+
+    @property
     def uf_parent(self) -> Optional[np.ndarray]:
-        """(n_r,) resolved ANH-EL union-find — the join forest."""
+        """(n_r,) resolved ANH-EL union-find — the join forest (fused:
+        computed by decompose(); replay: after .tree materializes)."""
         return self._uf_parent
 
     @property
@@ -186,27 +350,89 @@ class Decomposition:
         """(n_r,) nearest-lower-core table of the join forest."""
         return self._uf_L
 
+    # -- the planner's decision record -------------------------------------
     @property
-    def n_r(self) -> int:
-        return int(self._core.shape[0])
+    def plan(self) -> Optional[Plan]:
+        """How backend/hierarchy were resolved (None only on version-1
+        artifacts)."""
+        return self._plan
 
-    @property
-    def has_hierarchy(self) -> bool:
-        return self.config.hierarchy != "none"
+    def plan_report(self) -> str:
+        """Human-readable resolution report."""
+        if self._plan is None:
+            return "plan: not recorded (artifact predates plan embedding)"
+        return self._plan.report()
 
+    # -- lazy hierarchy ----------------------------------------------------
     @property
     def tree(self) -> HierarchyTree:
         """The hierarchy tree, materialized on first access and cached."""
-        if self._tree is None:
-            if not self.has_hierarchy:
+        if self._tree is not None:
+            return self._tree
+        h = self.config.hierarchy
+        if h == "none":
+            raise ValueError(
+                "this Decomposition was built with hierarchy='none'; "
+                "re-run decompose() with hierarchy='fused' (or 'replay'/"
+                "'two_phase'/'basic') to get a tree")
+        if h in ("fused", "replay") and self._uf_parent is None:
+            # replay defers the host LINK fixpoint until the tree is needed
+            if self.problem is None or self._order_round is None:
                 raise ValueError(
-                    "this Decomposition was built with hierarchy='none'; "
-                    "re-run decompose() with hierarchy='fused' to get a tree")
+                    "cannot materialize the hierarchy: the join forest was "
+                    "not computed and the peel trace / problem is not "
+                    "available (serialize with to_json() *after* the tree "
+                    "exists, or keep the NucleusProblem attached)")
+            res = PeelResult(core=self._core, rounds=self._rounds,
+                             order_round=self._order_round,
+                             peel_value=self._peel_value)
+            self._uf_parent, self._uf_L, self._link_stats = \
+                forest_from_trace(self.problem, res)
+        if h in ("fused", "replay"):
             state = link_state_from_forest(self._peel_value, self._uf_parent,
                                            self._uf_L)
-            self._tree = construct_tree_efficient(self, state)
+            self._tree = construct_tree_efficient(self._problem_view(), state)
+        elif h == "two_phase":
+            self._tree = build_hierarchy_levels(self._require_problem(),
+                                                self._core)
+        elif h == "basic":
+            self._tree = build_hierarchy_basic(self._require_problem(),
+                                               self._core)
         return self._tree
 
+    def _require_problem(self) -> NucleusProblem:
+        if self.problem is None:
+            raise ValueError(
+                f"hierarchy={self.config.hierarchy!r} rebuilds the tree "
+                "from the incidence structure, which a deserialized "
+                "Decomposition does not carry; serialize with to_json() "
+                "after the tree is materialized (to_json() does this) or "
+                "keep the NucleusProblem attached")
+        return self.problem
+
+    class _TreeProblemView:
+        """The construct-tree post-pass only reads ``n_r``."""
+
+        def __init__(self, n_r: int):
+            self.n_r = n_r
+
+    def _problem_view(self):
+        return self.problem if self.problem is not None \
+            else self._TreeProblemView(self.n_r)
+
+    def _r_clique_table(self) -> Optional[np.ndarray]:
+        if self._r_cliques is not None:
+            return self._r_cliques
+        return None if self.problem is None \
+            else self.problem.r_cliques.cpu().numpy()
+
+    def _edge_table(self) -> Optional[np.ndarray]:
+        if self._edges is not None:
+            return self._edges
+        return None if self.problem is None \
+            else self.problem.g.edges.cpu().numpy()
+
+    # -- queries -----------------------------------------------------------
     def cut(self, c: int) -> np.ndarray:
         """Label each r-clique with its c-(r, s) nucleus id (-1: core < c)."""
         c = int(c)
@@ -220,12 +446,18 @@ class Decomposition:
         if c in self._nuclei:
             return self._nuclei[c]
         labels = self.cut(c)
-        rc = self.problem.r_cliques.cpu().numpy()
-        edges = self.problem.g.edges.cpu().numpy()
+        rc = self._r_clique_table()
+        if rc is None:
+            raise ValueError(
+                "nucleus vertex sets need the r-clique table; this "
+                "artifact was saved without its inputs: serialize it "
+                "again with to_json() or keep the NucleusProblem attached")
+        edges = self._edge_table()
         labs, cnts = np.unique(labels[labels >= 0], return_counts=True)
         counts = dict(zip(labs.tolist(), cnts.tolist()))
         sets = nucleus_vertex_sets(rc, labels)
-        dens = edge_densities(edges, sets)
+        dens = edge_densities(edges, sets) if edges is not None \
+            else {lab: float("nan") for lab in sets}
         out = {int(lab): Nucleus(label=int(lab), vertices=verts,
                                  n_r_cliques=int(counts[lab]),
                                  density=dens[int(lab)])
@@ -233,11 +465,126 @@ class Decomposition:
         self._nuclei[c] = out
         return out
 
+    # -- incremental maintenance -------------------------------------------
+    def update(self, delta) -> "Decomposition":
+        """The reference's incremental ``update(GraphDelta)``: not yet
+        ported (ROADMAP Queue 1.8)."""
+        raise not_ported("Decomposition.update()", queue="1.8")
+
+    # -- serialization -----------------------------------------------------
+    def to_json(self) -> str:
+        """Serialize the full artifact (deterministic, round-trip exact),
+        in the reference's format: the same configuration gives the same
+        bytes as ``repro``'s ``to_json()``.
+
+        The tree is materialized first so a loaded Decomposition answers
+        ``cut``/``nuclei`` without the incidence structure; the r-clique
+        table + graph edges the nucleus/density queries need are embedded.
+        """
+        tree = self.tree if self.has_hierarchy else None
+        d: Dict[str, Any] = {
+            "format": JSON_FORMAT,
+            "version": JSON_VERSION,
+            "config": self.config.to_dict(),
+            "n_r": self.n_r,
+            "n_s": self._n_s if self._n_s is not None else (
+                None if self.problem is None else self.problem.n_s),
+            "n_vertices": self._n_vertices if self._n_vertices is not None
+            else (None if self.problem is None else int(self.problem.g.n)),
+            "rounds": self._rounds,
+            "name": self._name,
+            "live_version": self._version,
+            "core": _ints(self._core),
+            "order_round": _opt_ints(self._order_round),
+            "peel_value": _ints(self._peel_value),
+            "uf_parent": _opt_ints(self._uf_parent),
+            "uf_L": _opt_ints(self._uf_L),
+            "plan": None if self._plan is None else self._plan.to_dict(),
+            "tree": None if tree is None else {
+                "n_leaves": tree.n_leaves,
+                "parent": _ints(tree.parent),
+                "level": _ints(tree.level),
+            },
+        }
+        rc = self._r_clique_table()
+        ed = self._edge_table()
+        d["r_cliques"] = None if rc is None else np.asarray(rc).tolist()
+        d["edges"] = None if ed is None else np.asarray(ed).tolist()
+        return json.dumps(d, sort_keys=True, separators=(",", ":"))
+
+    @classmethod
+    def from_json(cls, blob: str) -> "Decomposition":
+        """Load a serialized decomposition (of either package) for query
+        serving.  The result has no ``NucleusProblem``; ``cut``/``nuclei``
+        answer from the embedded tree + inputs, and ``to_json()``
+        round-trips exactly."""
+        d = json.loads(blob)
+        if d.get("format") != JSON_FORMAT:
+            raise ValueError(
+                f"not a serialized Decomposition: format={d.get('format')!r}"
+                f" (expected {JSON_FORMAT!r}) — this file was not written "
+                f"by Decomposition.to_json(); regenerate the artifact with "
+                f"decompose(...).save(path)")
+        if d.get("version") not in SUPPORTED_JSON_VERSIONS:
+            raise ValueError(
+                f"unsupported Decomposition version {d.get('version')!r}: "
+                f"this build reads versions {SUPPORTED_JSON_VERSIONS} and "
+                f"writes {JSON_VERSION} — the artifact was written by a "
+                f"different version; regenerate it with to_json()/save() "
+                f"or upgrade the serving process")
+        config = NucleusConfig.from_dict(d["config"])
+        plan_d = d.get("plan")
+
+        def arr(x):
+            return None if x is None else np.asarray(x, np.int64)
+        t = d.get("tree")
+        tree = None if t is None else HierarchyTree(
+            n_leaves=int(t["n_leaves"]),
+            parent=np.asarray(t["parent"], np.int64),
+            level=np.asarray(t["level"], np.int64))
+        rc = d.get("r_cliques")
+        ed = d.get("edges")
+        return cls(config,
+                   core=np.asarray(d["core"], np.int64),
+                   rounds=int(d["rounds"]),
+                   order_round=arr(d.get("order_round")),
+                   peel_value=np.asarray(d["peel_value"], np.int64),
+                   uf_parent=arr(d.get("uf_parent")),
+                   uf_L=arr(d.get("uf_L")),
+                   tree=tree,
+                   r_cliques=None if rc is None
+                   else np.asarray(rc, np.int64).reshape(-1, config.r),
+                   edges=None if ed is None
+                   else np.asarray(ed, np.int64).reshape(-1, 2),
+                   n_vertices=d.get("n_vertices"),
+                   n_s=d.get("n_s"),
+                   plan=None if plan_d is None else Plan.from_dict(plan_d),
+                   name=d.get("name"),
+                   version=int(d.get("live_version", 0)))
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+            f.write("\n")
+
+    @classmethod
+    def load(cls, path: str) -> "Decomposition":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return (f"Decomposition(r={self.config.r}, s={self.config.s}, "
                 f"method={self.config.method!r}, "
+                f"backend={self.config.backend!r}, "
                 f"hierarchy={self.config.hierarchy!r}, n_r={self.n_r}, "
-                f"rounds={self._rounds})")
+                f"rounds={self._rounds}, "
+                f"tree={'materialized' if self._tree is not None else 'lazy'})")
+
+
+def _refuse_unported(config: NucleusConfig) -> None:
+    """Raise before any build for a backend the port does not run yet."""
+    if config.backend == "sharded":
+        raise not_ported("backend='sharded'")
 
 
 def resolve_problem(graph_or_problem, config: NucleusConfig,
@@ -245,23 +592,89 @@ def resolve_problem(graph_or_problem, config: NucleusConfig,
                     ) -> Tuple[NucleusProblem, NucleusConfig]:
     """Validate the config, then build the incidence structure from a
     ``Graph`` on `device`, or adopt a prebuilt ``NucleusProblem`` (its
-    (r, s) wins) and move it there."""
+    (r, s) wins) and move it there.
+
+    Build upgrade, as the reference's: with ``backend='auto'``, a
+    ``memory_budget_bytes`` and the default eager build, the estimated
+    eager working set (``distbuild.estimate_eager_build_bytes``) is
+    compared with the budget before the build runs; if it does not fit,
+    the build is upgraded to 'chunked' (one device).  The arrays are
+    bit-identical either way; the plan's reasons record the upgrade."""
     dev = resolve_device(device)
     if isinstance(graph_or_problem, NucleusProblem):
         problem = graph_or_problem.to(dev)
         if (problem.r, problem.s) != (config.r, config.s):
             config = dataclasses.replace(config, r=problem.r, s=problem.s)
         config.validate()
+        _refuse_unported(config)
         return problem, config
     if not isinstance(graph_or_problem, Graph):
         raise TypeError(f"decompose() takes a Graph or a NucleusProblem, got "
                         f"{type(graph_or_problem).__name__}")
     config.validate()
-    problem = build_problem(graph_or_problem, config.r, config.s,
-                            build=config.build,
+    _refuse_unported(config)
+    g = graph_or_problem.to(dev)
+    estimate = None
+    if config.backend == AUTO and config.build == "eager" and \
+            config.memory_budget_bytes is not None:
+        from ..distbuild import estimate_eager_build_bytes
+        from .incidence import pick_rank
+        dg, _ = pick_rank(g)
+        estimate = estimate_eager_build_bytes(dg, config.s)
+        if estimate > config.memory_budget_bytes:
+            config = dataclasses.replace(config, build="chunked")
+    problem = build_problem(g, config.r, config.s, build=config.build,
                             memory_budget_bytes=config.memory_budget_bytes,
                             chunk_size=config.build_chunk_size, device=dev)
+    if estimate is not None:
+        problem.build_stats = dict(problem.build_stats or {},
+                                   eager_estimate_bytes=estimate)
     return problem, config
+
+
+def plan_config(problem: NucleusProblem,
+                config: NucleusConfig) -> Tuple[NucleusConfig, Plan]:
+    """Resolve ``backend='auto'``/``hierarchy='auto'`` against ``problem``
+    on its device.
+
+    Returns the concrete, re-validated config plus the ``Plan`` decision
+    record (explicit configs get a trivial plan).
+    """
+    stats = problem.build_stats or {}
+    estimate = stats.get("eager_estimate_bytes")
+    plan = backend_registry.resolve_plan(
+        config, n_r=problem.n_r, n_s=problem.n_s, n_sub=problem.n_sub,
+        device_kind=problem.device.type, n_devices=1,
+        r=problem.r, s=problem.s, build=stats.get("build", config.build),
+        eager_build_bytes=estimate)
+    if estimate is not None and stats.get("build") == "chunked":
+        plan = dataclasses.replace(plan, reasons=plan.reasons + (
+            f"build 'chunked': estimated eager build working set "
+            f"~{estimate} B exceeds memory_budget_bytes="
+            f"{config.memory_budget_bytes} on one device "
+            f"({stats.get('n_chunks')} chunks of "
+            f"{stats.get('chunk_size')} source vertices, fast path "
+            f"{stats.get('fastpath')})",))
+    if (plan.backend, plan.hierarchy) != (config.backend, config.hierarchy):
+        changes = dict(backend=plan.backend, hierarchy=plan.hierarchy)
+        if config.backend == AUTO and config.build == "eager":
+            # the budget only guided the planner: an eager build has no
+            # use for it, and the resolved config must validate (the
+            # reference raises here when the eager estimate fits)
+            changes["memory_budget_bytes"] = None
+        config = dataclasses.replace(config, **changes)
+    config.validate()
+    return config, plan
+
+
+def execute_plan(problem: NucleusProblem, config: NucleusConfig,
+                 plan: Plan) -> Decomposition:
+    """Run an already-planned decomposition: registry lookup + dispatch."""
+    res = backend_registry.get(config.backend).run(problem, config)
+    return Decomposition(config, problem=problem, core=res.core,
+                         rounds=res.rounds, order_round=res.order_round,
+                         peel_value=res.peel_value, uf_parent=res.uf_parent,
+                         uf_L=res.uf_L, plan=plan)
 
 
 def decompose(graph_or_problem, config: Optional[NucleusConfig] = None, *,
@@ -271,28 +684,16 @@ def decompose(graph_or_problem, config: Optional[NucleusConfig] = None, *,
     ``graph_or_problem`` is a ``Graph`` (the incidence structure is built
     here from ``config.r/s``) or a prebuilt ``NucleusProblem``.
     ``config`` defaults to ``NucleusConfig()``; keyword overrides apply on
-    top, e.g. ``decompose(g, method="approx", delta=0.5)``.  ``device=None``
-    means the card: without one this raises, naming ``device="cpu"``.
+    top, e.g. ``decompose(g, method="approx", delta=0.5)``.
+    ``backend='auto'``/``hierarchy='auto'`` are resolved here by the
+    registry planner; the decision is recorded on the result (``.plan``/
+    ``plan_report()``) and serialized with it.  ``device=None`` means the
+    card: without one this raises, naming ``device="cpu"``.
     """
     if config is None:
         config = NucleusConfig()
     if overrides:
         config = dataclasses.replace(config, **overrides)
-    dev = resolve_device(device)
-    problem, config = resolve_problem(graph_or_problem, config, dev)
-    fused = config.hierarchy == "fused"
-    if config.method == "exact":
-        res = exact_coreness(problem, device=dev,
-                             use_kernel=config.use_kernel, hierarchy=fused)
-    else:
-        res = approx_coreness(problem, delta=config.delta, device=dev,
-                              use_kernel=config.use_kernel, hierarchy=fused)
-
-    def host(t):
-        return None if t is None else t.cpu().numpy()
-    return Decomposition(config, problem=problem, core=host(res.core),
-                         rounds=res.rounds,
-                         order_round=host(res.order_round),
-                         peel_value=host(res.peel_value),
-                         uf_parent=host(res.uf_parent) if fused else None,
-                         uf_L=host(res.uf_L) if fused else None)
+    problem, config = resolve_problem(graph_or_problem, config, device)
+    config, plan = plan_config(problem, config)
+    return execute_plan(problem, config, plan)

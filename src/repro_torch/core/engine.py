@@ -329,6 +329,17 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
 # Single-device dense entry: kernel plans + the round-body choice
 # ---------------------------------------------------------------------------
 
+def kernel_by_default(dev: torch.device) -> bool:
+    """What ``use_kernel=None`` resolves to on `dev`.
+
+    The planner profile's measured verdict when an entry covers the device
+    (``planner_profile.kernel_default``), else the static rule: the
+    hand-written kernels on CUDA, plain torch on the CPU."""
+    from .planner_profile import kernel_default
+    v = kernel_default(dev.type, dev.type)
+    return dev.type == "cuda" if v is None else v
+
+
 def _plan_cache(problem: NucleusProblem) -> dict:
     cache = getattr(problem, "_plans", None)
     if cache is None:
@@ -389,7 +400,8 @@ def dense_coreness(problem: NucleusProblem, schedule: PeelSchedule, *,
     ``device=None`` means the card (raising without one; pass
     ``device="cpu"`` for the CPU).  ``use_kernel=None`` means the kernel
     round bodies on CUDA and the plain body on the CPU; ``use_kernel=True``
-    on the CPU runs the kernel bodies' plain versions.  With the kernels on,
+    on the CPU runs the kernel bodies' plain versions (the resolution is
+    ``kernel_by_default``).  With the kernels on,
     the megakernel is the round body while its plan (4 * n_s * C(s,r)^2
     bytes) fits MEGAKERNEL_PLAN_BUDGET_BYTES, else the segment-sum
     decrement; ``fused_kernel=True/False`` forces the choice.  Raw bucket
@@ -398,7 +410,7 @@ def dense_coreness(problem: NucleusProblem, schedule: PeelSchedule, *,
     dev = resolve_device(device)
     problem = problem.to(dev)
     if use_kernel is None:
-        use_kernel = dev.type == "cuda"
+        use_kernel = kernel_by_default(dev)
     n_r = problem.n_r
     scatter = None
     fused_round = None

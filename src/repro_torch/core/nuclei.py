@@ -1,11 +1,45 @@
 """Nuclei extraction for the Fig. 10 queries (counterpart of
-``repro.core.nuclei``): vertex sets, densities and canonical labels.
-Host numpy code, copied from the reference."""
+``repro.core.nuclei``).
+
+``cut_hierarchy`` extracts every c-(r,s) nucleus from a built hierarchy
+tree by one upward sweep (cheap); ``nuclei_without_hierarchy`` answers the
+same query from core numbers alone by running connectivity over the
+qualifying r-cliques on the problem's device (the expensive comparison
+baseline).  Vertex sets, densities and canonical labels are host numpy
+code, copied from the reference.
+"""
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
+
+from ..graph.connectivity import connected_components
+from .hierarchy import HierarchyTree, hierarchy_edges
+
+
+def cut_hierarchy(tree: HierarchyTree, c: int) -> np.ndarray:
+    """Label each leaf (r-clique) with its c-(r,s) nucleus id; -1 if
+    core < c.
+
+    Removing all internal nodes of level < c makes each surviving subtree
+    one c-nucleus; the subtree root id is the label.
+    """
+    return tree.ancestor_at_level(c)
+
+
+def nuclei_without_hierarchy(problem, core, c: int) -> np.ndarray:
+    """The no-hierarchy baseline: connectivity over r-cliques with
+    core >= c."""
+    u, v, w = hierarchy_edges(problem, core)
+    sel = w >= c
+    labels = connected_components(problem.n_r, u[sel], v[sel])
+    out = labels.cpu().numpy().astype(np.int64)
+    core_np = core.cpu().numpy() if isinstance(core, torch.Tensor) \
+        else np.asarray(core)
+    out[core_np < c] = -1
+    return out
 
 
 def nucleus_vertex_sets(r_cliques: np.ndarray, labels: np.ndarray
@@ -90,3 +124,14 @@ def canonicalize_labels(labels: np.ndarray) -> np.ndarray:
         rank = np.argsort(np.argsort(first))  # unique-label -> occurrence rank
         out[sel] = rank[inv]
     return out
+
+
+def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
+    """Do two labelings induce the same partition (ignoring label names)?"""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if ((a < 0) != (b < 0)).any():
+        return False
+    return bool((canonicalize_labels(a) == canonicalize_labels(b)).all())

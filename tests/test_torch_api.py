@@ -3,10 +3,10 @@ the config surface and the device policy.
 
 * All 24 ``tests/golden/*.json``: ``decompose(..., device="cpu")`` gives the
   fixture's core numbers and canonical cut partitions (port only).
-* The (2,3) goldens: every array of the port's ``Decomposition`` equals
-  ``repro.decompose``'s on the same incidence arrays, cuts and nuclei
-  included (exact; tests/test_torch_engine.py holds approx peeling to the
-  reference engine on the same graphs).
+* The (2,3) goldens, and fig1 and planted40 at (1,2), (2,3) and (3,4)
+  exact and approx: every array of the port's default ``Decomposition``
+  equals ``repro.decompose``'s on the same incidence arrays, cuts and
+  nuclei included (the other configurations: tests/test_torch_facade.py).
 * Without a card, an entry point called with no ``device`` raises and names
   ``device="cpu"``.
 """
@@ -59,17 +59,33 @@ def test_decompose_reproduces_golden_fixture(fname):
                                       want, err_msg=f"cut level c={c}")
 
 
-@pytest.mark.parametrize("name", sorted(golden_suite()))
-def test_decompose_matches_reference(name):
+# (2,3) exact on every golden (ids: the graph's name), then approx at
+# (2,3) and exact and approx at (1,2) and (3,4) on the graphs with the
+# deepest cores (ROADMAP Queue 1.1's coverage)
+REFERENCE_CASES = (
+    [pytest.param(name, 2, 3, "exact", id=name)
+     for name in sorted(golden_suite())] +
+    [pytest.param(name, r, s, method, id=f"{name}-r{r}s{s}-{method}")
+     for name in ("fig1", "planted40")
+     for r, s, method in ((2, 3, "approx"), (1, 2, "exact"),
+                          (1, 2, "approx"), (3, 4, "exact"),
+                          (3, 4, "approx"))])
+
+
+@pytest.mark.parametrize("name,r,s,method", REFERENCE_CASES)
+def test_decompose_matches_reference(name, r, s, method):
     g = golden_suite()[name](device="cpu")
-    port_problem = build_problem(g, 2, 3, device="cpu")
+    port_problem = build_problem(g, r, s, device="cpu")
     jp = JProblem(g=JGraph(n=g.n, edges=jnp.asarray(g.edges.numpy())),
-                  r=2, s=3,
+                  r=r, s=s,
                   **{f: jnp.asarray(getattr(port_problem, f).numpy())
                      for f in FIELDS},
                   orientation=port_problem.orientation)
-    want = jcore.decompose(jp, jcore.NucleusConfig())
-    got = decompose(g, NucleusConfig(), device="cpu")
+    cfg = dict(r=r, s=s, method=method)
+    if method == "approx":
+        cfg["delta"] = 0.5
+    want = jcore.decompose(jp, jcore.NucleusConfig(**cfg))
+    got = decompose(g, NucleusConfig(**cfg), device="cpu")
     assert got.rounds == want.rounds
     for field in ("core", "order_round", "peel_value", "uf_parent", "uf_L"):
         np.testing.assert_array_equal(getattr(got, field),
@@ -88,13 +104,15 @@ def test_decompose_matches_reference(name):
 
 
 @pytest.mark.parametrize("bad,word", [
-    ({"backend": "gather"}, "not yet ported"),
     ({"backend": "sharded"}, "not yet ported"),
-    ({"hierarchy": "replay"}, "not yet ported"),
     ({"build": "sharded"}, "not yet ported"),
+    ({"backend": "sharded", "compress": True}, "not yet ported"),
+    ({"build": "chunked", "build_shards": 2}, "not yet ported"),
     ({"backend": "tpu"}, "expected one of"),
     ({"method": "approx", "delta": 0.0}, "delta > 0"),
     ({"r": 3, "s": 3}, "1 <= r < s"),
+    ({"backend": "gather", "hierarchy": "fused"}, "no compiled loop"),
+    ({"backend": "nh", "method": "approx"}, "exact baseline"),
 ])
 def test_config_outside_the_slice_raises(bad, word):
     with pytest.raises(ConfigError, match=word):

@@ -338,3 +338,68 @@ def test_flash_attention_edges_on_card(cuda_device):
         case = (B, H, Hkv, Sq, Sk, D, causal)
         assert row_rel_err(got, want) <= 1e-2, case
         assert row_rel_err(ctl, want) > 1e-2, case
+
+
+def kcore_slots(rng, n, m):
+    """The k-core lane's plan on a random graph of n vertices and about m
+    edges, a third of the vertices isolated (empty segments) and one
+    vertex a hub (a run over many of the kernel's tiles): (vids, nbrs),
+    vids ascending."""
+    live = rng.choice(n, size=2 * n // 3, replace=False)
+    u = rng.choice(live, m)
+    v = rng.choice(live, m)
+    u[: m // 4] = live[0]                     # the hub
+    keep = u != v
+    e = np.unique(np.sort(np.stack([u[keep], v[keep]], 1), 1), axis=0)
+    src = np.concatenate([e[:, 0], e[:, 1]])
+    dst = np.concatenate([e[:, 1], e[:, 0]])
+    order = np.argsort(src, kind="stable")
+    return src[order].astype(np.int32), dst[order].astype(np.int32)
+
+
+@pytest.mark.cuda
+def test_segment_sum_at_the_kcore_lane_shape(cuda_device):
+    """The lane's decrement: (2m, 1) int32 of a peeled mask gathered by the
+    neighbor slots, summed by the ascending vertex slots, with dense runs
+    (a hub) and empty vertices; bit-identical to the plain twin, one
+    launch a call."""
+    rng = np.random.default_rng(12)
+    for n, m in [(1, 0), (7, 12), (5_000, 40_000), (300_000, 1_500_000)]:
+        vids, nbrs = kcore_slots(rng, n, m) if m else (
+            np.zeros(0, np.int32), np.zeros(0, np.int32))
+        for frac in (0.0, 0.05, 1.0):
+            a = (rng.random(n) < frac).astype(np.int32)
+            data = t(a[nbrs][:, None])
+            want = segment_sum_plain(data, t(vids), n)
+            before = launch_counts["segment_sum"]
+            got = segment_sum(data.to(cuda_device), t(vids).to(cuda_device),
+                              n)
+            torch.cuda.synchronize()
+            assert launch_counts["segment_sum"] == before + 1
+            assert torch.equal(got.cpu(), want), (n, m, frac)
+
+
+@pytest.mark.cuda
+def test_kcore_lane_on_card(cuda_device):
+    """decompose at (1,2) on the card: the lane launches the segment sum
+    once a round and no megakernel, and its arrays equal the CPU lane's
+    and the card's generic engine on the megakernel."""
+    from repro_torch import NucleusConfig, decompose
+    from repro_torch.graph.generators import community_power_law
+    for g_cpu in (golden_suite()["planted40"](device="cpu"),
+                  community_power_law(3_000, seed=2, device="cpu")):
+        before = dict(launch_counts)
+        lane = decompose(g_cpu, NucleusConfig(r=1, s=2), device=cuda_device)
+        assert launch_counts["segment_sum"] - before["segment_sum"] == \
+            lane.rounds
+        assert launch_counts["peel_round"] == before["peel_round"]
+        on_cpu = decompose(g_cpu, NucleusConfig(r=1, s=2), device="cpu")
+        pinned = decompose(g_cpu, NucleusConfig(r=1, s=2, use_kernel=True),
+                           device=cuda_device)
+        assert launch_counts["peel_round"] - before["peel_round"] == \
+            pinned.rounds
+        for other in (on_cpu, pinned):
+            assert other.rounds == lane.rounds
+            for f in ("core", "order_round", "uf_parent", "uf_L"):
+                np.testing.assert_array_equal(getattr(lane, f),
+                                              getattr(other, f), err_msg=f)

@@ -1,8 +1,11 @@
 """The port stands alone: no module of src/repro_torch/ and not
-chip_smoke.py imports jax or the JAX package ``repro``, and importing
-``repro_torch`` leaves jax out of ``sys.modules``."""
+chip_smoke.py imports jax or the JAX package ``repro``, importing
+``repro_torch`` leaves jax out of ``sys.modules``, and no module of
+src/repro_torch/ names a path under src/repro/ in its code (a data file of
+the reference, such as its planner profile, read through a path)."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -51,6 +54,49 @@ def test_port_sources_found():
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+# a path component "repro" (the reference package's directory)
+REFERENCE_PATH = re.compile(r"(^|[/\\])repro([/\\]|$)")
+
+
+def reference_paths(source):
+    """(line, string) of every string constant outside docstrings that
+    names a path under the reference package: "repro" as a path part or
+    as a component handed to os.path.join."""
+    tree = ast.parse(source)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs and REFERENCE_PATH.search(node.value)]
+
+
+def test_reference_path_detector():
+    """The scan below sees a path into the reference however it is
+    spelled, and passes the port's own paths and docstrings."""
+    bad = ('"""Reads src/repro/core/planner_profile.json."""\n'
+           'import os\n'
+           'A = os.path.join(ROOT, "src", "repro", "core")\n'
+           'B = "../repro/core/planner_profile.json"\n'
+           'C = "src\\\\repro\\\\core"\n'
+           'D = os.path.join(ROOT, "src", "repro_torch", "core")\n'
+           'E = "repro_torch/core/planner_profile.json"\n')
+    assert sorted(line for line, _ in reference_paths(bad)) == [3, 4, 5]
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in port_files() if not p.endswith("chip_smoke.py")],
+    ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_path_into_the_reference(path):
+    with open(path) as f:
+        found = reference_paths(f.read())
+    assert not found, f"{os.path.relpath(path, ROOT)} names {found}"
 
 
 def test_import_leaves_jax_unloaded():
