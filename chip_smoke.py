@@ -7,9 +7,10 @@ triangles, then the memory-bounded chunked build on the card: its dense
 (2,3) fast path on a 32,768-vertex graph and its sparse seed-chunked path on
 the million-vertex graph, then LM inference of minicpm-2b at full width
 (random seeded weights): a 32,768-token prefill through the flash-attention
-kernel and a decode server.  Every kernel of those paths is checked against
-its plain-torch version on the card.  Phases (any failure ends the run with
-a non-zero exit):
+kernel and a decode server, and last the nucleus server (a warm Session,
+exact updates, a multi-tenant router and its HTTP surface).  Every kernel
+of those paths is checked against its plain-torch version on the card.
+Phases (any failure ends the run with a non-zero exit):
 
   1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc),
      printing what ptxas reports for every kernel: registers, static
@@ -60,7 +61,23 @@ a non-zero exit):
      minitron-4b smoke configs on the card and the CPU (equal greedy
      tokens); ``serve_lm`` of minicpm-2b at full width on the card (decode
      runs the online scan: no flash launch);
-  9. a JSON line of per-kernel numbers, the card's name and power limit,
+  9. the nucleus server: ``Session().decompose`` of the smoke problem
+     (counted in its pow2 shape bucket, run by ``decompose``'s engine),
+     bit-identical to phase 3 with megakernel launches == rounds, and a
+     warm same-bucket call; one seeded delta of 8 inserts and 8 deletes
+     through ``Session.update`` at (2,3) and on phase 7's (1,2) artifact,
+     each equal to a fresh decompose of the edited graph (core, uf_parent,
+     tree, cuts at three levels; uf_L equal to the canonical-chain
+     forest the update resolves, its entries apart from the fused peel's L
+     counted); the warm pool: 6 graphs of 250,000 + 1,000·i
+     vertices round-robin over (2,3) exact, (1,2) exact and (2,3) approx
+     through one ``Router`` (3 pools, 3 warm hits, every artifact equal to
+     ``decompose``, the megakernel or the k-core lane's segment sum
+     launched once a round) with 16 queries per artifact (each nuclei
+     answer's labels equal to its cut's); the HTTP
+     server's selftest and a restart from its cache directory (every
+     decompose warm); ``serve_nucleus`` on the saved smoke artifact;
+ 10. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -98,6 +115,14 @@ LM_ARCH = "minicpm-2b"   # the LM path's model, at its published width
 PREFILL_S = 32_768       # prefill_32k's sequence (its global batch 32 -> 1)
 PLAIN_ROWS = 1_024       # query rows per slice of the plain twin at PREFILL_S
 CPU_CHECK_S = 256        # card-vs-CPU forward: full width, 2 layers, f32
+UPDATE_OPS = 8           # phase 9 (b): inserts and deletes of one delta
+POOL_N = 250_000         # phase 9 (c): the warm pool's graphs have
+POOL_STEP = 1_000        # POOL_N + POOL_STEP·i vertices
+POOL_GRAPHS = 6          # ... round-robin over POOL_CONFIGS: 2 per pool
+POOL_QUERIES = 16        # ... cut/nuclei queries per artifact
+SERVE_QUERIES = 64       # phase 9 (e): queries of the saved artifact
+POOL_CONFIGS = ({"r": 2, "s": 3}, {"r": 1, "s": 2},
+                {"r": 2, "s": 3, "method": "approx"})
 # flash attention vs its plain twin: (B, H, Hkv, Sq, Sk, D, causal, dtype)
 FLASH_CASES = (
     (1, 2, 2, 96, 96, 64, True, torch.bfloat16),          # ragged
@@ -639,7 +664,8 @@ def phase_configs(g, main, small_fused, seed: int):
     other non-sharded triple on the SMALL_N graph, card == CPU, cuts equal
     to dense/fused's (``small_fused``: phase 6's dense/fused (card, CPU)
     decompositions of that graph by method); (e) the artifact's JSON round
-    trip.  Returns the segment-sum row's k-core fields."""
+    trip.  Returns the segment-sum row's k-core fields and the (1,2)
+    k-core-lane artifact (phase 9 updates it)."""
     from repro_torch import Decomposition, NucleusConfig, decompose
     from repro_torch.core import build_problem, canonicalize_labels
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -674,6 +700,7 @@ def phase_configs(g, main, small_fused, seed: int):
     row = {"kcore_path": "decompose(g, NucleusConfig(r=1, s=2))",
            "kcore_launches": lane_counts["segment_sum"]}
     row.update(phase_lane_kernel(p12, seed))
+    lane12 = lane
     del lane, generic, p12
     torch.cuda.empty_cache()
 
@@ -810,7 +837,7 @@ def phase_configs(g, main, small_fused, seed: int):
                 f"{triple}: loaded nuclei({c}) differ")
         log(f"[configs] {'/'.join(triple)} artifact: {len(blob)} bytes in "
             f"{json_s:.2f} s, round trip byte for byte, cut/nuclei equal")
-    return row
+    return row, lane12
 
 
 def flash_inputs(gen, B, H, Hkv, Sq, Sk, D, dtype):
@@ -1103,6 +1130,243 @@ def phase_lm(seed: int):
             "path": f"lm_prefill_step({LM_ARCH}, B=1, S={PREFILL_S})"}
 
 
+def smoke_delta(g, seed: int):
+    """A seeded GraphDelta of UPDATE_OPS inserts (absent pairs) and
+    UPDATE_OPS deletes (present edges) of the graph g."""
+    from repro_torch import GraphDelta
+    rng = np.random.default_rng(seed + 9)
+    edges = g.edges.cpu().numpy().astype(np.int64)
+    keys = set(((edges[:, 0] << 32) | edges[:, 1]).tolist())
+    ins = []
+    while len(ins) < UPDATE_OPS:
+        u, v = sorted(int(x) for x in rng.integers(0, g.n, 2))
+        if u != v and (u << 32) | v not in keys:
+            keys.add((u << 32) | v)
+            ins.append((u, v))
+    dels = edges[rng.choice(edges.shape[0], UPDATE_OPS, replace=False)]
+    return GraphDelta(insert=np.array(ins), delete=dels)
+
+
+def same_arrays(got, want, fields, what: str) -> None:
+    for name in fields:
+        require(np.array_equal(np.asarray(getattr(got, name)),
+                               np.asarray(want[name] if isinstance(want, dict)
+                                          else getattr(want, name))),
+                f"{what}: {name} differs")
+
+
+def quantile_levels(core: np.ndarray):
+    levels = np.unique(core[core > 0])
+    return sorted({int(c) for c in np.quantile(levels, [0.25, 0.5, 0.9])
+                   .astype(int)}) if levels.size else []
+
+
+def chain_forest(dec):
+    """(parent, L) of the canonical chain multiset (each s-clique's members
+    sorted by core, consecutive pairs linked) over dec's problem and core:
+    the forest ``update`` resolves."""
+    from repro_torch.core.streaming import _chain_forest
+    p = dec.problem
+    return _chain_forest(p.inc_rid, torch.as_tensor(dec.core,
+                                                    device=p.device), None)
+
+
+def log_step(name: str, since: float) -> float:
+    now = time.perf_counter()
+    log(f"[server] ({name}) {now - since:.2f} s")
+    return now
+
+
+def phase_server(g, main, lane12, seed: int):
+    """Phase 9: the nucleus server on the card.
+
+    (a) ``Session().decompose`` of the smoke problem (its pow2 bucket
+    counted, ``decompose``'s engine run), bit-identical to phase 3 with
+    megakernel launches == rounds, then a warm same-bucket call; (b) one
+    seeded delta of UPDATE_OPS inserts and deletes through ``Session.update``
+    at (2,3) (on (a)'s artifact) and (1,2) (on phase 7's k-core-lane
+    artifact), each equal to a fresh decompose of the edited graph; (c) the
+    warm pool: POOL_GRAPHS graphs round-robin over POOL_CONFIGS through one
+    ``Router``, bit-identical to ``decompose``, launches == rounds, and
+    POOL_QUERIES queries per artifact; (d) the HTTP server's selftest and a
+    restart from its cache directory; (e) ``serve_nucleus`` on (a)'s saved
+    artifact.  Returns the launch counts of (c)'s pools by kernel."""
+    import tempfile
+
+    from repro_torch import NucleusConfig, Session, decompose
+    from repro_torch.core import build_problem
+    from repro_torch.graph.generators import community_power_law
+    from repro_torch.kernels import _build, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch.serve import serve_nucleus, serve_nucleus_server
+    from repro_torch.serve import Request, Router
+    forest = ("core", "uf_parent", "uf_L")
+
+    step_t = time.perf_counter()
+    # (a) the Session at the smoke size
+    p23 = build_problem(g, 2, 3)
+    sess = Session()
+    reset_launch_counts()
+    art, cold_s = timed(lambda: sess.decompose(p23))
+    counts = dict(launch_counts)
+    key = sess.bucket_key(p23)
+    require(counts["peel_round"] == art.rounds and
+            counts["segment_sum"] == 0,
+            f"Session launches {counts} over {art.rounds} rounds")
+    require(art.rounds == main["rounds"], "Session: rounds differ")
+    same_arrays(art, main, ("core", "order_round", "uf_parent", "uf_L"),
+                "Session vs phase 3")
+    _, warm_s = timed(lambda: sess.decompose(p23))
+    require(sess.stats["warm"] == 1 and sess.stats["cold"] == 1,
+            f"the second same-bucket decompose is not warm: {sess.stats}")
+    log(f"[server] Session().decompose at the smoke size: bucket n_r_pad="
+        f"{key[4]} n_s_pad={key[5]} e_pad={key[7]} (plan "
+        f"{4 * key[7] * p23.n_sub} B); rounds={art.rounds}, launches="
+        f"{counts}; core, order_round, rounds, uf_parent, uf_L equal to "
+        f"phase 3; cold {cold_s:.2f} s, warm {warm_s:.2f} s (phase 3's "
+        f"decompose, build included: {main['decompose_s']:.2f} s)")
+    del p23
+
+    step_t = log_step("a", step_t)
+    # (b) one delta through Session.update at (2,3) and (1,2)
+    delta = smoke_delta(g, seed)
+    for cfg, live in ((NucleusConfig(), art),
+                      (NucleusConfig(r=1, s=2), lane12)):
+        what = f"update ({cfg.r},{cfg.s})"
+        usess = sess if cfg.s == 3 else Session(cfg)
+        new, upd_s = timed(lambda: usess.update(live, delta))
+        fresh, fresh_s = timed(lambda: decompose(new.problem.g, cfg))
+        same_arrays(new, fresh, ("core", "uf_parent"),
+                    f"{what} vs a fresh decompose")
+        require(np.array_equal(new.tree.parent, fresh.tree.parent) and
+                np.array_equal(new.tree.level, fresh.tree.level),
+                f"{what}: the tree differs from a fresh decompose")
+        cuts = quantile_levels(fresh.core)
+        for c in cuts:
+            require(np.array_equal(new.cut(c), fresh.cut(c)),
+                    f"{what}: cut({c}) differs from a fresh decompose")
+        # uf_L: the update re-resolves the canonical chain multiset (as the
+        # reference does), whose L ties can break apart from the fused
+        # peel's link stream; it must equal that multiset's forest on the
+        # fresh problem exactly, and the count apart from the fused L is
+        # reported
+        chain_L = chain_forest(fresh)[1]
+        require(np.array_equal(new.uf_L, chain_L),
+                f"{what}: uf_L differs from the canonical-chain forest")
+        apart = int((new.uf_L != fresh.uf_L).sum())
+        st = usess.stats
+        log(f"[server] {what}: {delta.n_ops} ops in {upd_s:.2f} s "
+            f"({upd_s / delta.n_ops:.3f} s/op; fresh decompose "
+            f"{fresh_s:.2f} s); {new.update_stats}; stream_warm="
+            f"{st['stream_warm']} stream_cold={st['stream_cold']}; core, "
+            f"uf_parent, tree and cut at {cuts} equal to a fresh decompose;"
+            f" uf_L equal to the canonical-chain forest, {apart} of "
+            f"{new.n_r} entries apart from the fused peel's L")
+        del new, fresh
+    del lane12
+    torch.cuda.empty_cache()
+
+    step_t = log_step("b", step_t)
+    # (c) the warm pool at real size
+    router = Router()
+    pool_launches = {"peel_round": 0, "segment_sum": 0}
+    per_pool = {}
+    spent = {"graph and build": 0.0, "decompose twin": 0.0, "queries": 0.0}
+    lat_us = []
+    rng = np.random.default_rng(seed)
+    for i in range(POOL_GRAPHS):
+        cfg = POOL_CONFIGS[i % len(POOL_CONFIGS)]
+        t = time.perf_counter()
+        gi = community_power_law(POOL_N + POOL_STEP * i, seed=i,
+                                 device="cuda")
+        pi = build_problem(gi, cfg["r"], cfg["s"])
+        torch.cuda.synchronize()
+        spent["graph and build"] += time.perf_counter() - t
+        reset_launch_counts()
+        dec, dec_s = timed(lambda: router.route(Request(graph=pi, **cfg)))
+        counts = dict(launch_counts)
+        kernel = "segment_sum" if cfg["s"] == 2 else "peel_round"
+        require(counts[kernel] == dec.rounds and sum(counts.values()) ==
+                dec.rounds, f"pool {cfg}: launches {counts} over "
+                f"{dec.rounds} rounds")
+        pool_launches[kernel] += counts[kernel]
+        want, twin_s = timed(lambda: decompose(pi, NucleusConfig(**cfg)))
+        spent["decompose twin"] += twin_s
+        require(dec.rounds == want.rounds, f"pool {cfg}: rounds differ")
+        same_arrays(dec, want, forest + ("order_round", "peel_value"),
+                    f"pool {cfg} vs decompose")
+        kmax = int(dec.core.max())
+        for q, c in enumerate(rng.integers(1, max(kmax, 1) + 1,
+                                           size=POOL_QUERIES)):
+            t = time.perf_counter()
+            got = dec.nuclei(int(c)) if q % 2 else dec.cut(int(c))
+            lat_us.append((time.perf_counter() - t) * 1e6)
+            if q % 2:
+                labels = dec.cut(int(c))
+                require(set(got) == set(np.unique(labels[labels >= 0])
+                                        .tolist()),
+                        f"pool {cfg}: nuclei({c}) and cut({c}) disagree")
+        spent["queries"] += sum(lat_us[-POOL_QUERIES:]) / 1e6
+        per_pool.setdefault(str(cfg), []).append(
+            f"{dec_s:.2f} s (n={gi.n} m={gi.m} n_r={pi.n_r} n_s={pi.n_s} "
+            f"rounds={dec.rounds})")
+        del gi, pi, dec, want
+    report = router.report()
+    warm = sum(p["stats"]["warm"] for p in report["pools"])
+    buckets = [b for p in report["pools"] for b in p["buckets"]]
+    require(len(report["pools"]) == len(POOL_CONFIGS) and
+            warm == POOL_GRAPHS - len(POOL_CONFIGS) and
+            len(buckets) == len(POOL_CONFIGS),
+            f"warm pool: {len(report['pools'])} pools, {warm} warm hits, "
+            f"buckets {buckets}")
+    lat = np.asarray(lat_us)
+    log(f"[server] warm pool: {POOL_GRAPHS} graphs, {len(report['pools'])} "
+        f"pools, {warm} warm hits, buckets {buckets}; decompose cold, warm "
+        f"per pool: {per_pool}; launches {pool_launches}; every artifact "
+        f"equal to decompose; {lat.size} queries p50="
+        f"{np.percentile(lat, 50):.0f} us p95={np.percentile(lat, 95):.0f}"
+        f" us; seconds spent besides the routed decomposes: "
+        f"{ {k: round(v, 2) for k, v in spent.items()} }")
+    del router
+    torch.cuda.empty_cache()
+
+    step_t = log_step("c", step_t)
+    # (d) the HTTP server, then a restart from its cache directory
+    build_dir = _build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            first, first_s = timed(lambda: serve_nucleus_server(
+                selftest=True, cache_dir=tmp, quiet=True))
+            again, again_s = timed(lambda: serve_nucleus_server(
+                selftest=True, cache_dir=tmp, quiet=True))
+        finally:
+            _build.set_build_dir(build_dir)
+    require(again["prewarmed"] >= 1 and
+            again["warm_hits"] == again["decomposes"],
+            f"the restarted server did not start warm: {again}")
+    log(f"[server] HTTP selftest {first} in {first_s:.2f} s; restart from "
+        f"its cache directory {again} in {again_s:.2f} s (every decompose "
+        f"warm)")
+
+    step_t = log_step("d", step_t)
+    # (e) serialized-artifact queries at the smoke size
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.json")
+        _, save_s = timed(lambda: art.save(path))
+        size = os.path.getsize(path)
+        stats, serve_s = timed(lambda: serve_nucleus(
+            path, n_queries=SERVE_QUERIES, seed=seed, quiet=True))
+    require(stats["queries"] == SERVE_QUERIES and stats["n_r"] == art.n_r,
+            f"serve_nucleus: {stats}")
+    log(f"[server] serve_nucleus on the saved smoke artifact ({size} B, "
+        f"saved in {save_s:.2f} s): {stats['queries']} queries "
+        f"({stats['cut']} cut, {stats['nuclei']} nuclei) at "
+        f"{stats['qps']:.2f} q/s, p50={stats['p50_us']:.0f} us "
+        f"p95={stats['p95_us']:.0f} us; load + queries {serve_s:.2f} s")
+    log_step("e", step_t)
+    return pool_launches
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -1277,7 +1541,7 @@ def main() -> int:
         "to the megakernel path")
     rows[0]["launches"] = main_counts["peel_round"]
     rows[0]["path"] = "decompose(g, NucleusConfig())"
-    phase3 = {"rounds": dec.rounds, "cuts": main_cuts,
+    phase3 = {"rounds": dec.rounds, "cuts": main_cuts, "decompose_s": dec_s,
               "tree_parent": tree.parent, "tree_level": tree.level}
     phase3.update({name: getattr(dec, name) for name in (
         "core", "order_round", "peel_value", "uf_parent", "uf_L")})
@@ -1415,15 +1679,23 @@ def main() -> int:
     phase_t = log_phase(6, phase_t)
 
     # -- phase 7: every single-device configuration ------------------------
-    rows[1].update(phase_configs(g, phase3, small_fused, args.seed))
-    del phase3, small_fused
+    row12, lane12 = phase_configs(g, phase3, small_fused, args.seed)
+    rows[1].update(row12)
+    del small_fused
     phase_t = log_phase(7, phase_t)
 
     # -- phase 8: LM inference ------------------------------------------------
     rows.append(phase_lm(args.seed))
     phase_t = log_phase(8, phase_t)
 
-    # -- phase 9: the result lines ------------------------------------------
+    # -- phase 9: the nucleus server -----------------------------------------
+    server = phase_server(g, phase3, lane12, args.seed)
+    rows[0]["server_launches"] = server["peel_round"]
+    rows[1]["server_launches"] = server["segment_sum"]
+    del phase3, lane12
+    phase_t = log_phase(9, phase_t)
+
+    # -- phase 10: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

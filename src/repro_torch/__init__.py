@@ -16,7 +16,9 @@ from .core.api import (ConfigError, Decomposition, Nucleus, NucleusConfig,
                        decompose)
 from .core.backends import Plan
 from .core.incidence import NucleusProblem, build_problem
+from .core.session import Session
+from .core.streaming import GraphDelta, UpdateStats
 
 __all__ = ["resolve_device", "ConfigError", "Decomposition", "Nucleus",
            "NucleusConfig", "Plan", "decompose", "NucleusProblem",
-           "build_problem"]
+           "build_problem", "Session", "GraphDelta", "UpdateStats"]

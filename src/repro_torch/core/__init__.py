@@ -10,6 +10,9 @@ hierarchies and the ``decompose()`` front door (counterpart of
   NucleusConfig / Plan / resolve_plan / register_backend
       the validated config, the capability-declared backend registry and
       the ``backend='auto'`` planner (``core.backends``).
+  Session / GraphDelta / update_decomposition
+      warm decompose-many through pow2 shape buckets (``core.session``) and
+      the exact incremental ``Decomposition.update`` (``core.streaming``).
 
 The building blocks are exported under the reference's names.  The
 reference's deprecated package-level wrappers have no counterpart: the
@@ -20,9 +23,9 @@ from .api import (ConfigError, Decomposition, Nucleus, NucleusConfig,
 from .backends import (Backend, BackendCapabilities, BackendResult, Plan,
                        resolve_plan)
 from .backends import register as register_backend
-from .engine import (dense_coreness, link_fixpoint, make_schedule,
-                     peel_round, round_links, run_peel_engine,
-                     scatter_decrement)
+from .engine import (dense_coreness, h_index_rows, link_fixpoint,
+                     local_converge, make_schedule, peel_round, round_links,
+                     run_peel_engine, scatter_decrement)
 from .hierarchy import (HierarchyTree, build_hierarchy_basic,
                         build_hierarchy_levels, hierarchy_edges)
 from .incidence import (NucleusProblem, build_problem, pick_rank,
@@ -39,3 +42,5 @@ from .nuclei import (canonicalize_labels, cut_hierarchy, edge_densities,
                      nucleus_vertex_sets, same_partition)
 from .peel import PeelResult, approx_coreness, exact_coreness
 from .schedule import PeelSchedule
+from .streaming import GraphDelta, UpdateStats, update_decomposition
+from .session import Session

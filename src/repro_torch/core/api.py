@@ -21,9 +21,10 @@ coreness plus the join-forest hierarchy, queried at many resolutions
     (``JSON_FORMAT``, version 2, version 1 readable), so an artifact of
     either package loads in the other.
 
-Not ported yet (``NOT_PORTED``; each raises ``ConfigError`` naming it): the
-sharded backend and build, ``compress``, ``build_shards`` (ROADMAP Queue
-1.9) and ``Decomposition.update`` (Queue 1.8).
+``Decomposition.update(delta)`` maintains an exact artifact under edge
+inserts and deletes (``core.streaming``).  Not ported yet (``NOT_PORTED``;
+each raises ``ConfigError`` naming it): the sharded backend and build,
+``compress`` and ``build_shards`` (ROADMAP Queue 1.9).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from .hierarchy import (HierarchyTree, build_hierarchy_basic,
 from .incidence import BUILDS, NucleusProblem, build_problem
 from .interleaved import (construct_tree_efficient, forest_from_trace,
                           link_state_from_forest)
-from .nuclei import edge_densities, nucleus_vertex_sets
+from .nuclei import grouped_densities, grouped_vertex_sets, split_groups
 from .peel import PeelResult
 
 JSON_FORMAT = "repro.nucleus-decomposition"
@@ -53,7 +54,7 @@ SUPPORTED_JSON_VERSIONS = (1, 2)
 
 # what the reference runs that the port does not yet
 NOT_PORTED = ("backend='sharded'", "build='sharded'", "compress=True",
-              "build_shards", "Decomposition.update()")
+              "build_shards")
 
 __all__ = ["AUTO", "BACKENDS", "HIERARCHIES", "METHODS", "NOT_PORTED",
            "ConfigError", "Decomposition", "Nucleus", "NucleusConfig",
@@ -325,8 +326,8 @@ class Decomposition:
 
     @property
     def version(self) -> int:
-        """Live-artifact version: 0 at decompose() time (the reference
-        adds one per ``update(delta)``, which is not ported yet)."""
+        """Live-artifact version: 0 at decompose() time, incremented by
+        every ``update(delta)``."""
         return self._version
 
     @property
@@ -453,23 +454,41 @@ class Decomposition:
                 "artifact was saved without its inputs: serialize it "
                 "again with to_json() or keep the NucleusProblem attached")
         edges = self._edge_table()
-        labs, cnts = np.unique(labels[labels >= 0], return_counts=True)
-        counts = dict(zip(labs.tolist(), cnts.tolist()))
-        sets = nucleus_vertex_sets(rc, labels)
-        dens = edge_densities(edges, sets) if edges is not None \
-            else {lab: float("nan") for lab in sets}
-        out = {int(lab): Nucleus(label=int(lab), vertices=verts,
-                                 n_r_cliques=int(counts[lab]),
-                                 density=dens[int(lab)])
-               for lab, verts in sets.items()}
+        labs, counts = np.unique(labels[labels >= 0], return_counts=True)
+        _, starts, verts = grouped_vertex_sets(rc, labels)
+        sizes = np.diff(np.append(starts, verts.shape[0]))
+        dens = grouped_densities(edges, sizes, verts) if edges is not None \
+            else np.full((labs.shape[0],), np.nan)
+        out = {lab: Nucleus(label=lab, vertices=v, n_r_cliques=k, density=d)
+               for lab, v, k, d in zip(labs.tolist(),
+                                       split_groups(verts, starts),
+                                       counts.tolist(), dens.tolist())}
         self._nuclei[c] = out
         return out
 
     # -- incremental maintenance -------------------------------------------
-    def update(self, delta) -> "Decomposition":
-        """The reference's incremental ``update(GraphDelta)``: not yet
-        ported (ROADMAP Queue 1.8)."""
-        raise not_ported("Decomposition.update()", queue="1.8")
+    def update(self, delta, *, bucket_hook=None) -> "Decomposition":
+        """Apply a ``GraphDelta`` (edge inserts/deletes) incrementally.
+
+        Returns a NEW ``Decomposition`` for the edited graph: core, peel
+        values, ``uf_parent``, the tree and every query are identical to a
+        fresh ``decompose()`` of the edited graph, but only the affected
+        neighborhood is recomputed (``core.streaming``, on the attached
+        problem's device).  ``uf_L`` is the canonical chain multiset's, as
+        the reference's ``update`` gives it: it can break a tie apart from
+        the fused peel's.  ``self`` stays valid for the OLD graph.
+
+        Exact method only, (r, s) in ``streaming.SUPPORTED_RS``, hierarchy
+        'fused' or 'none', and the ``NucleusProblem`` must be attached.
+        The result has no peel trace (``order_round=None``, ``rounds ==
+        -1``) and carries an ``update_stats`` record.  ``bucket_hook``
+        lets ``Session.update`` count the shape classes of the local
+        stages.
+        """
+        from .streaming import update_decomposition
+        new_dec, _stats = update_decomposition(self, delta,
+                                               bucket_hook=bucket_hook)
+        return new_dec
 
     # -- serialization -----------------------------------------------------
     def to_json(self) -> str:

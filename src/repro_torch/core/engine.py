@@ -219,6 +219,106 @@ def link_fixpoint(parent: torch.Tensor, L: torch.Tensor, core: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Restartable local convergence (DESIGN.md §10): the h-operator Jacobi sweep
+# the streaming update runs over an affected subproblem.  It starts from a
+# caller-provided value state and iterates DOWNWARD to the largest fixpoint
+# below it: the exact core values whenever the seed dominates them pointwise
+# and the frozen boundary carries its true values.
+# ---------------------------------------------------------------------------
+
+def h_index_segments(vals: torch.Tensor, owner: torch.Tensor,
+                     n_seg: int) -> torch.Tensor:
+    """Per-segment h-index: for each s in [0, n_seg), the largest h with
+    >= h of the ``vals[owner == s]`` >= h (0 for an empty segment).
+
+    Negative entries never count.  One sort by (owner, value descending),
+    then the k-th value of its segment counts toward h = k."""
+    dev = vals.device
+    if vals.numel() == 0:
+        return torch.zeros((n_seg,), dtype=INT, device=dev)
+    own = owner.long()
+    key = (own << 32) | (BIG - vals.long())
+    order = torch.argsort(key)
+    own_s = own[order]
+    start = torch.zeros((n_seg + 1,), dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(torch.bincount(own, minlength=n_seg), 0)
+    rank = torch.arange(1, own.numel() + 1, device=dev) - start[own_s]
+    h = torch.where(vals.long()[order] >= rank, rank, 0)
+    out = torch.zeros((n_seg,), dtype=torch.int64, device=dev)
+    return out.scatter_reduce_(0, own_s, h, "amax").to(INT)
+
+
+def h_index_rows(vals: torch.Tensor) -> torch.Tensor:
+    """Row-wise h-index of an (m, d) matrix: the largest h with >= h
+    entries >= h.  Negative entries are padding and never count."""
+    m, d = int(vals.shape[0]), int(vals.shape[1])
+    rows = torch.arange(m, device=vals.device).repeat_interleave(d)
+    return h_index_segments(vals.reshape(-1), rows, m)
+
+
+def _sweep_to_fixpoint(theta: Callable, vals0: torch.Tensor,
+                       frozen: torch.Tensor, max_sweeps: int):
+    """f <- min(f, theta(f)) on the non-frozen entries until a sweep changes
+    nothing or ``max_sweeps`` sweeps ran (one host sync per sweep)."""
+    vals, sweeps = vals0, 0
+    while sweeps < max_sweeps:
+        new = torch.where(frozen, vals, torch.minimum(vals, theta(vals)))
+        sweeps += 1
+        done = bool(torch.equal(new, vals))
+        vals = new
+        if done:
+            break
+    return vals, sweeps
+
+
+def local_converge(inc_sub: torch.Tensor, owner: torch.Tensor,
+                   slots: torch.Tensor, vals0: torch.Tensor,
+                   frozen: torch.Tensor, max_sweeps: int):
+    """Restartable-from-state h-operator iteration over a subproblem.
+
+    One Jacobi sweep computes, for every r-clique i of the subproblem,
+    Theta(f)[i] = h-index over { min_{j in S, j != i} f[j] : S an incident
+    s-clique }, then applies f <- min(f, Theta(f)) on the non-frozen
+    entries; the loop runs until a sweep changes nothing.  Theta is
+    monotone, so the iteration converges to the largest fixpoint below the
+    seed (Tarski).
+
+    inc_sub:      (rows, C) member indices into the subproblem's r-clique
+                  space (-1 entries never count).
+    owner, slots: (E,) pairs: r-clique ``owner[k]`` owns the incidence
+                  slot ``slots[k]`` of ``inc_sub.reshape(-1)``.  The
+                  reference pads these lists to an (m, d) matrix, a jit
+                  shape class; at power-law degrees that matrix is m·dmax
+                  cells, so the port takes the pairs as they are.
+    vals0:        (m,) int32 seed values; frozen entries are boundary state.
+    max_sweeps:   safety cap (each productive sweep lowers the integer
+                  total by >= 1, so sum(seed) + 2 always suffices).
+
+    Plain torch on the tensors' device (the reference's ``jnp`` sweep; no
+    kernel backs it).  Returns (vals, sweeps) with sweeps a Python int.
+    """
+    m = int(vals0.shape[0])
+    C = int(inc_sub.shape[1])
+    colv = torch.arange(C, dtype=torch.int64, device=inc_sub.device)[None, :]
+    valid = inc_sub >= 0
+    members = torch.clamp(inc_sub, 0, max(m - 1, 0)).long()
+    slots = slots.long()
+
+    def theta(vals):
+        va = torch.where(valid, vals[members], BIG)
+        m1 = va.amin(dim=1)
+        at_min = colv == torch.argmin(va, dim=1)[:, None]
+        m2 = torch.where(at_min, BIG, va).amin(dim=1)
+        # min over the OTHER members: the argmin column sees the
+        # second-smallest, every other column sees the row minimum
+        excl = torch.where(at_min, m2[:, None], m1[:, None])
+        rv = torch.where(valid, excl, -1).reshape(-1)
+        return h_index_segments(rv[slots], owner, m)
+
+    return _sweep_to_fixpoint(theta, vals0, frozen, int(max_sweeps))
+
+
+# ---------------------------------------------------------------------------
 # The round body and its driver
 # ---------------------------------------------------------------------------
 

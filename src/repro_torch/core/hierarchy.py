@@ -54,13 +54,16 @@ class HierarchyTree:
         """
         node = np.arange(self.n_leaves, dtype=np.int64)
         cur = np.where(self.level[: self.n_leaves] >= c, node, -1)
-        while True:
-            valid = cur >= 0
-            p = np.where(valid, self.parent[np.maximum(cur, 0)], -1)
-            ok = (p >= 0) & (self.level[np.maximum(p, 0)] >= c) & valid
-            if not ok.any():
-                return cur
-            cur = np.where(ok, p, cur)
+        # climb one level a step; a leaf whose parent fails the test never
+        # moves again, so each step visits only the leaves still climbing
+        act = np.flatnonzero(cur >= 0)
+        while act.size:
+            p = self.parent[cur[act]]
+            ok = p >= 0
+            ok[ok] = self.level[p[ok]] >= c
+            act = act[ok]
+            cur[act] = p[ok]
+        return cur
 
 
 def new_tree_buffers(n_r: int, core_np: np.ndarray):

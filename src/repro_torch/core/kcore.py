@@ -26,8 +26,9 @@ schedule, same trace semantics) and is declared as the ``"kcore"`` fast
 lane of the dense backend.  ``peel._run`` routes (1, 2) dense peels here
 unless ``use_kernel=True`` pins the generic megakernel engine.
 
-``kcore_local_converge`` (the streaming update's local iteration) is not
-ported here: its only caller is ``core/streaming.py`` (ROADMAP Queue 1.8).
+``kcore_local_converge`` is the streaming update's local iteration at
+(1, 2): ``engine.local_converge`` over the adjacency instead of incidence
+slots.
 """
 from __future__ import annotations
 
@@ -38,10 +39,33 @@ import torch
 from ..graph.container import INT
 from ..kernels.peel_round import PEELED, peel_key
 from ..kernels.segment_sum import segment_sum, segment_sum_plain
-from .engine import _plan_cache, kernel_by_default, link_fixpoint, \
-    run_peel_engine
+from .engine import _plan_cache, _sweep_to_fixpoint, h_index_segments, \
+    kernel_by_default, link_fixpoint, run_peel_engine
 from .incidence import NucleusProblem
 from .schedule import PeelSchedule
+
+
+def kcore_local_converge(owner: torch.Tensor, nbrs: torch.Tensor,
+                         vals0: torch.Tensor, frozen: torch.Tensor,
+                         max_sweeps: int):
+    """Restartable-from-state local k-core iteration (the r1s2 degeneracy
+    of ``engine.local_converge``): with C = 2 the per-s-clique "min of the
+    other members" is the neighbor's value, so one Jacobi sweep is an
+    adjacency gather and an h-index, with no incidence-slot indirection.
+
+    owner, nbrs: (E,) pairs: vertex ``owner[k]`` has neighbor ``nbrs[k]``,
+    both in the subproblem's vertex space (the reference pads them to an
+    (m, d) matrix); vals0, frozen and max_sweeps as in
+    ``engine.local_converge``.  Returns (vals, sweeps) with sweeps a
+    Python int.
+    """
+    m = int(vals0.shape[0])
+    nbrs = nbrs.long()
+
+    def theta(vals):
+        return h_index_segments(vals[nbrs], owner, m)
+
+    return _sweep_to_fixpoint(theta, vals0, frozen, int(max_sweeps))
 
 
 def takes_kcore_lane(r: int, s: int, use_kernel: Optional[bool]) -> bool:

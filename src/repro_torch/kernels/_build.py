@@ -3,9 +3,12 @@
 Each source is compiled to an object by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with a
 plain C interface, loaded through ``ctypes``.  The library lands in the
-repository's git-ignored ``build/kernels/`` directory under a name derived
-from the sources' content hash, so an edited source is never served a stale
-build.  Nothing here runs at import time: the first kernel launch builds.
+build directory, by default the repository's git-ignored ``build/kernels/``
+(``set_build_dir`` moves it: a server's persistent cache directory, so a
+restarted server loads the built library instead of running ``nvcc``),
+under a name derived from the sources' content hash, so an edited source is
+never served a stale build.  Nothing here runs at import time: the first
+kernel launch builds.
 """
 from __future__ import annotations
 
@@ -36,6 +39,15 @@ SIGNATURES = {
     "repro_tricount": [_P, _LL, _I, _P, _P, _P, _P, _P],
     "repro_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_LL] * 12 + [_P],
 }
+
+
+def set_build_dir(path) -> Path:
+    """Build into, and load from, ``path`` from now on.  A library this
+    process has already loaded stays loaded; the directory applies to the
+    next build or load (a fresh process)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
 
 
 def sources():

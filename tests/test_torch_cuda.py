@@ -403,3 +403,63 @@ def test_kcore_lane_on_card(cuda_device):
             for f in ("core", "order_round", "uf_parent", "uf_L"):
                 np.testing.assert_array_equal(getattr(lane, f),
                                               getattr(other, f), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_padded_session_on_card(cuda_device):
+    """Session.decompose on the card: a (2,3) pool launches the megakernel
+    once a round, a (1,2) pool the k-core lane's segment sum; the arrays
+    equal the CPU's decompose, and a second same-bucket graph counts
+    warm."""
+    from repro_torch import NucleusConfig, Session, decompose
+    from repro_torch.graph.generators import community_power_law
+    # one size, two seeds: one shape class with the kernel's e_pad too
+    graphs = [community_power_law(4_000, seed=i, device="cpu")
+              for i in range(2)]
+    for cfg, kernel in ((NucleusConfig(), "peel_round"),
+                        (NucleusConfig(r=1, s=2), "segment_sum"),
+                        (NucleusConfig(method="approx"), "peel_round")):
+        sess = Session(cfg)
+        for g in graphs:
+            before = dict(launch_counts)
+            got = sess.decompose(g)
+            assert launch_counts[kernel] - before[kernel] == got.rounds
+            want = decompose(g, cfg, device="cpu")
+            assert got.rounds == want.rounds
+            for f in ("core", "order_round", "peel_value", "uf_parent",
+                      "uf_L"):
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f), err_msg=f)
+        assert (sess.stats["cold"], sess.stats["warm"]) == (1, 1)
+        assert sess.prewarm(sess.manifest()) == 1
+
+
+@pytest.mark.cuda
+def test_update_on_card(cuda_device):
+    """Decomposition.update on the card at (1,2) and (2,3): equal to a
+    fresh decompose of the edited graph on the CPU, problem kept on the
+    card."""
+    from repro_torch import GraphDelta, NucleusConfig, decompose
+    from repro_torch.graph.generators import community_power_law
+    g = community_power_law(3_000, seed=3, device="cpu")
+    rng = np.random.default_rng(5)
+    edges = g.edges.numpy()
+    present = {tuple(e) for e in edges.tolist()}
+    ins = []
+    while len(ins) < 4:
+        u, v = sorted(int(x) for x in rng.integers(0, g.n, 2))
+        if u != v and (u, v) not in present and (u, v) not in ins:
+            ins.append((u, v))
+    dels = edges[rng.choice(edges.shape[0], 4, replace=False)]
+    delta = GraphDelta(insert=np.array(ins), delete=dels)
+    for cfg in (NucleusConfig(), NucleusConfig(r=1, s=2)):
+        new = decompose(g, cfg, device=cuda_device).update(delta)
+        assert new.problem.device.type == "cuda"
+        fresh = decompose(new.problem.g.to(torch.device("cpu")), cfg,
+                          device="cpu")
+        for f in ("core", "uf_parent", "uf_L"):
+            np.testing.assert_array_equal(getattr(new, f),
+                                          getattr(fresh, f), err_msg=f)
+        kmax = int(fresh.core.max())
+        for c in (1, max(kmax // 2, 1), kmax):
+            np.testing.assert_array_equal(new.cut(c), fresh.cut(c))

@@ -45,7 +45,10 @@ def test_port_sources_found():
     for mod in ("models/transformer.py", "configs/minicpm_2b.py",
                 "configs/minitron_4b.py", "configs/stablelm_12b.py",
                 "launch/serve.py", "launch/steps.py",
-                "kernels/flash_attention.py"):
+                "kernels/flash_attention.py", "core/session.py",
+                "core/streaming.py", "serve/__init__.py", "serve/router.py",
+                "serve/frontend.py", "serve/status.py", "serve/cache.py",
+                "serve/httpd.py"):
         assert mod in rel, mod
 
 
@@ -104,7 +107,8 @@ def test_import_leaves_jax_unloaded():
             "peel_round, repro_torch.kernels.segment_sum, repro_torch.graph."
             "generators, repro_torch.kernels.flash_attention, "
             "repro_torch.models, repro_torch.configs, repro_torch.launch, "
-            "repro_torch.launch.serve; bad = [m for m in sys.modules if "
+            "repro_torch.launch.serve, repro_torch.core.session, "
+            "repro_torch.core.streaming, repro_torch.serve; bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

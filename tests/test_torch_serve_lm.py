@@ -61,6 +61,8 @@ def test_prefill_step_argmax_matches_reference(arch):
 
 
 def test_serve_lm_unported_lanes_raise():
-    for arch in ("din", "nucleus"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve.serve_lm(arch, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        serve.serve_lm("din", device="cpu")
+    # nucleus is ported, by its own lanes (tests/test_torch_serve.py)
+    with pytest.raises(ValueError, match="serve_nucleus"):
+        serve.serve_lm("nucleus", device="cpu")
