@@ -7,8 +7,10 @@ triangles, then the memory-bounded chunked build on the card: its dense
 (2,3) fast path on a 32,768-vertex graph and its sparse seed-chunked path on
 the million-vertex graph, then LM inference of minicpm-2b at full width
 (random seeded weights): a 32,768-token prefill through the flash-attention
-kernel and a decode server, and last the nucleus server (a warm Session,
-exact updates, a multi-tenant router and its HTTP surface).  Every kernel
+kernel and a decode server, then the nucleus server (a warm Session,
+exact updates, a multi-tenant router and its HTTP surface), and last the
+sharded lane (the sharded build, the peel over a mesh of slabs, its exact
+compressed reduction and a sharded pool).  Every kernel
 of those paths is checked against its plain-torch version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
@@ -77,7 +79,19 @@ Phases (any failure ends the run with a non-zero exit):
      answer's labels equal to its cut's); the HTTP
      server's selftest and a restart from its cache directory (every
      decompose warm); ``serve_nucleus`` on the saved smoke artifact;
- 10. a JSON line of per-kernel numbers, the card's name and power limit,
+ 10. the sharded lane on the smoke graph: the sharded build over 4 shards
+     (digest equal to phase 2's eager build, its stats and seconds beside
+     the eager build's); ``decompose`` on the sharded backend over
+     ``Mesh(("cuda:0",) * 4)`` (core, rounds, uf_parent, uf_L and cuts at
+     three levels equal to phase 3's; segment-sum launches == 4 x rounds
+     and no megakernel launch), on ``make_host_mesh()`` (one card: one
+     slab and no collective; several: NCCL), with ``compress=True``
+     (equal arrays, drain steps printed; a 70,000-leaf star at (1,2) over
+     two slabs gives its hub core 1) and at approx (equal to the dense
+     approx run); a ``Router`` pool of two POOL_N graphs on the sharded
+     backend (one warm hit, a "sharded" bucket of 4 shards, each artifact
+     equal to ``decompose``); the segment sum timed at one slab's plan;
+ 11. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -86,6 +100,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1367,6 +1382,178 @@ def phase_server(g, main, lane12, seed: int):
     return pool_launches
 
 
+SHARDS = 4               # phase 10: build shards and peel slabs
+STAR_LEAVES = 70_000     # phase 10 (d): the star of the compress fault
+
+
+def phase_sharded(g, main, eager_digest: str, eager_build_s: float,
+                  seed: int):
+    """Phase 10: the sharded lane on the smoke graph.
+
+    (a) ``build_problem(g, 2, 3, build="sharded", shards=SHARDS)``, its
+    digest equal to phase 2's eager build; (b) ``decompose`` on the
+    sharded backend and build over ``Mesh(("cuda:0",) * SHARDS)``, equal
+    to phase 3 (core, rounds, uf_parent, uf_L, cuts at three levels) with
+    segment-sum launches == SHARDS x rounds and no megakernel launch; (c)
+    the same on ``make_host_mesh()``; (d) ``compress=True`` on (b)'s mesh,
+    equal to (b), and the star at (1,2) over two slabs; (e) approx on
+    (b)'s mesh == the dense approx run; (f) a Router pool of two POOL_N
+    graphs on (b)'s mesh.  Returns the segment sum's sharded launches and
+    its time at one slab's plan."""
+    from repro_torch import NucleusConfig, decompose
+    from repro_torch.core import build_problem, canonicalize_labels
+    from repro_torch.core.distributed import _partition
+    from repro_torch.core.incidence import problem_digest
+    from repro_torch.graph.container import Graph
+    from repro_torch.graph.generators import community_power_law
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.segment_sum import (segment_sum,
+                                                 segment_sum_plain)
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.serve import Request, Router
+    forest = ("core", "uf_parent", "uf_L")
+
+    # (a) the sharded build
+    sp, sp_s = timed(lambda: build_problem(g, 2, 3, build="sharded",
+                                           shards=SHARDS))
+    st = sp.build_stats
+    require(problem_digest(sp) == eager_digest,
+            "the sharded build differs from phase 2's eager build")
+    log(f"[sharded] build_problem(g, 2, 3, build='sharded', shards="
+        f"{SHARDS}): digest equal to the eager build; build_s={sp_s:.2f} "
+        f"(eager {eager_build_s:.2f}); shards={st['n_shards']} "
+        f"chunks_per_shard={st['chunks_per_shard']} chunk_size="
+        f"{st['chunk_size']} skew={st['skew']:.4f} exchange_bytes="
+        f"{st['exchange_bytes']}")
+    del sp
+    torch.cuda.empty_cache()
+
+    # (b) the sharded backend and build on SHARDS slabs of one card
+    mesh = Mesh(("cuda:0",) * SHARDS)
+    cfg = NucleusConfig(backend="sharded", build="sharded",
+                        build_shards=SHARDS, mesh=mesh)
+    reset_launch_counts()
+    dec, dec_s = timed(lambda: decompose(g, cfg))
+    counts = dict(launch_counts)
+    p = dec.problem
+
+    def equal_to_main(d, what):
+        require(d.rounds == main["rounds"], f"{what}: rounds {d.rounds} != "
+                f"phase 3's {main['rounds']}")
+        same_arrays(d, main, forest, what)
+
+    equal_to_main(dec, "sharded decompose")
+    for c, want in main["cuts"].items():
+        require(np.array_equal(canonicalize_labels(dec.cut(c)), want),
+                f"sharded decompose: cut({c}) differs from phase 3's")
+    require(counts["segment_sum"] == SHARDS * dec.rounds and
+            counts["peel_round"] == 0,
+            f"sharded launches {counts} over {dec.rounds} rounds")
+    log(f"[sharded] decompose(g, backend='sharded', build='sharded', mesh="
+        f"{mesh}): rounds={dec.rounds}, segment-sum launches "
+        f"{counts['segment_sum']} = {SHARDS} x rounds, no megakernel; "
+        f"core, uf_parent, uf_L and cuts at {sorted(main['cuts'])} equal "
+        f"to phase 3; decompose_s={dec_s:.2f} (phase 3 "
+        f"{main['decompose_s']:.2f}); {dec.peel_stats}")
+    sharded_launches = counts["segment_sum"]
+
+    # the segment sum at one slab's plan (slab 0 of the mesh)
+    rids, sids = _partition(p, mesh)[0].plans[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    dead = (torch.rand(p.n_s, generator=gen, device="cuda") < 0.3).to(
+        torch.int32)
+    data = torch.index_select(dead, 0, sids)[:, None]
+    require(torch.equal(segment_sum(data, rids, p.n_r),
+                        segment_sum_plain(data, rids, p.n_r)),
+            "segment_sum differs from its plain version at a slab's plan")
+    slab_ms = cuda_ms(lambda: segment_sum(data, rids, p.n_r), 20)
+    slab_plain = cuda_ms(lambda: segment_sum_plain(data, rids, p.n_r), 5)
+    slab_lib = cuda_ms(lambda: torch.zeros((p.n_r, 1), dtype=torch.int32,
+                                           device="cuda").index_add_(
+                                               0, rids, data), 5)
+    E = int(rids.shape[0])
+    slab_bound = 1e3 * 4 * (E + E + p.n_r) / HBM_BYTES_PER_S
+    log(f"[sharded] segment_sum at slab 0's plan (E={E} of "
+        f"{int(p.mem_sids.shape[0])}, n_r={p.n_r}): equal to plain; "
+        f"kernel_ms={slab_ms:.4f} plain_ms={slab_plain:.4f} "
+        f"library_ms={slab_lib:.4f} bound_ms={slab_bound:.4f}")
+    del data, dead
+
+    # (c) the host mesh: every visible card
+    host = make_host_mesh()
+    reset_launch_counts()
+    dh, dh_s = timed(lambda: decompose(p, NucleusConfig(backend="sharded")))
+    counts = dict(launch_counts)
+    equal_to_main(dh, "sharded decompose on make_host_mesh()")
+    require(counts["segment_sum"] == len(host) * dh.rounds and
+            counts["peel_round"] == 0,
+            f"host-mesh launches {counts} over {dh.rounds} rounds")
+    ran = dh.peel_stats
+    require(ran["collective"] == ("nccl" if len(host) > 1 else "local"),
+            f"host mesh {host}: {ran}")
+    log(f"[sharded] make_host_mesh() = {host}: "
+        f"{'one slab, no collective' if len(host) == 1 else 'NCCL'} ran "
+        f"({ran}); equal to phase 3; decompose_s={dh_s:.2f}")
+    del dh
+
+    # (d) compress=True: the same arrays, and the star of the fault
+    dc, dc_s = timed(lambda: decompose(p, dataclasses.replace(
+        cfg, compress=True)))
+    equal_to_main(dc, "sharded decompose with compress=True")
+    log(f"[sharded] compress=True on {mesh}: arrays equal to (b); drain "
+        f"steps {dc.peel_stats['drain_steps']}; decompose_s={dc_s:.2f}")
+    del dc
+    leaves = torch.arange(1, STAR_LEAVES + 1, dtype=torch.int32,
+                          device="cuda")
+    star = Graph(n=STAR_LEAVES + 1, edges=torch.stack(
+        [torch.zeros_like(leaves), leaves], dim=1))
+    ds = decompose(star, NucleusConfig(
+        r=1, s=2, backend="sharded", compress=True,
+        mesh=Mesh(("cuda:0",) * 2)))
+    require(int(ds.core[0]) == 1 and int(ds.core.max()) == 1 and
+            ds.peel_stats["drain_steps"] > 0,
+            f"star: hub core {int(ds.core[0])}, {ds.peel_stats}")
+    log(f"[sharded] star of {STAR_LEAVES} leaves at (1,2), compress=True "
+        f"over 2 slabs: hub core 1, drain steps "
+        f"{ds.peel_stats['drain_steps']}")
+
+    # (e) approx: equal to the dense approx run on the card
+    da = decompose(p, dataclasses.replace(cfg, method="approx"))
+    want = decompose(p, NucleusConfig(method="approx"))
+    require(da.rounds == want.rounds, "approx: rounds differ")
+    same_arrays(da, want, forest + ("peel_value",), "sharded approx")
+    log(f"[sharded] approx on {mesh}: core, peel_value, uf_parent, uf_L "
+        f"equal to the dense approx run (rounds {da.rounds})")
+    del da, want, dec, p
+    torch.cuda.empty_cache()
+
+    # (f) a Router pool on the sharded backend
+    router = Router()
+    router.pool(NucleusConfig(backend="sharded", mesh=mesh))
+    for i in (0, len(POOL_CONFIGS)):  # phase 9's two (2,3) graphs
+        gi = community_power_law(POOL_N + POOL_STEP * i, seed=i,
+                                 device="cuda")
+        art = router.route(Request(graph=gi, backend="sharded"))
+        want = decompose(gi, NucleusConfig())
+        require(art.rounds == want.rounds, f"pool graph {i}: rounds differ")
+        same_arrays(art, want, forest, f"pool graph {i} vs decompose")
+    pool = router.report()["pools"][0]
+    buckets = [b for b in pool["buckets"] if "shards" in b]
+    require(pool["stats"]["warm"] == 1 and len(buckets) == 1 and
+            buckets[0]["shards"] == SHARDS,
+            f"sharded pool: {pool['stats']} {pool['buckets']}")
+    log(f"[sharded] Router pool of 2 graphs of ~{POOL_N} vertices on "
+        f"{mesh}: 1 warm hit, bucket {buckets[0]}, each artifact equal to "
+        f"decompose")
+    return {"sharded_launches": sharded_launches, "sharded_slab_ms": slab_ms,
+            "sharded_slab_plain_ms": slab_plain,
+            "sharded_slab_library_ms": slab_lib,
+            "sharded_slab_bound_ms": slab_bound,
+            "sharded_path": "decompose(g, NucleusConfig(backend='sharded', "
+                            "build='sharded', build_shards=4, mesh=Mesh(("
+                            "'cuda:0',) * 4)))"}
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -1692,10 +1879,16 @@ def main() -> int:
     server = phase_server(g, phase3, lane12, args.seed)
     rows[0]["server_launches"] = server["peel_round"]
     rows[1]["server_launches"] = server["segment_sum"]
-    del phase3, lane12
+    del lane12
     phase_t = log_phase(9, phase_t)
 
-    # -- phase 10: the result lines -----------------------------------------
+    # -- phase 10: the sharded lane -------------------------------------------
+    rows[1].update(phase_sharded(g, phase3, eager_digest, build_s,
+                                 args.seed))
+    del phase3
+    phase_t = log_phase(10, phase_t)
+
+    # -- phase 11: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

@@ -6,10 +6,11 @@ coreness plus the join-forest hierarchy, queried at many resolutions
 
   * ``NucleusConfig`` captures every axis in one frozen, validated record:
     (r, s), exact or approx peeling, the backend (``dense``, ``gather``,
-    ``nh`` or ``auto``), the hierarchy strategy (``none``, ``fused``,
-    ``replay``, ``two_phase``, ``basic`` or ``auto``), the kernel knob and
-    the build.  Backend legality is derived from the registry's capability
-    declarations (``backends.check_capabilities``), so the legal triples
+    ``sharded``, ``nh`` or ``auto``), the hierarchy strategy (``none``,
+    ``fused``, ``replay``, ``two_phase``, ``basic`` or ``auto``), the
+    kernel knob, the mesh and the build.  Backend legality is derived
+    from the registry's capability declarations
+    (``backends.check_capabilities``), so the legal triples
     and their messages are the reference's.
   * ``decompose`` builds the incidence structure on the device (``None``:
     the card), lets the planner resolve ``auto`` axes
@@ -22,9 +23,10 @@ coreness plus the join-forest hierarchy, queried at many resolutions
     either package loads in the other.
 
 ``Decomposition.update(delta)`` maintains an exact artifact under edge
-inserts and deletes (``core.streaming``).  Not ported yet (``NOT_PORTED``;
-each raises ``ConfigError`` naming it): the sharded backend and build,
-``compress`` and ``build_shards`` (ROADMAP Queue 1.9).
+inserts and deletes (``core.streaming``).  Every configuration of the
+reference runs (``NOT_PORTED`` is empty): the sharded backend runs over a
+``launch.mesh.Mesh`` of torch devices (``core.distributed``) and the
+sharded build plans chunks onto shards (``repro_torch.distbuild``).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from ..device import DeviceLike, resolve_device
 from ..graph.container import Graph
 from . import backends as backend_registry
 from .backends import (AUTO, BACKENDS, HIERARCHIES, METHODS, ConfigError,
-                       Plan, not_ported)
+                       Plan)
 from .hierarchy import (HierarchyTree, build_hierarchy_basic,
                         build_hierarchy_levels)
 from .incidence import BUILDS, NucleusProblem, build_problem
@@ -52,9 +54,8 @@ JSON_VERSION = 2
 # version 1 artifacts (pre-Plan) load fine: "plan" is simply absent.
 SUPPORTED_JSON_VERSIONS = (1, 2)
 
-# what the reference runs that the port does not yet
-NOT_PORTED = ("backend='sharded'", "build='sharded'", "compress=True",
-              "build_shards")
+# what the reference runs that the port does not yet: nothing
+NOT_PORTED = ()
 
 __all__ = ["AUTO", "BACKENDS", "HIERARCHIES", "METHODS", "NOT_PORTED",
            "ConfigError", "Decomposition", "Nucleus", "NucleusConfig",
@@ -70,11 +71,11 @@ class NucleusConfig:
                     ``delta`` sets the approximation knob.
       backend     — "dense" (the peel engine on the device; (1, 2) takes
                     the k-core lane unless ``use_kernel=True``), "gather"
-                    (the eager work-efficient host loop), "nh" (the
+                    (the eager work-efficient host loop), "sharded" (the
+                    engine over ``mesh``, ``core.distributed``), "nh" (the
                     sequential baseline) or "auto" (the registry planner
-                    picks from the device, the problem size and the
-                    memory budget).  "sharded" is registered but not yet
-                    ported.
+                    picks from the device, the mesh it would use, the
+                    problem size and the memory budget).
       hierarchy   — "none", "fused" (LINK fixpoint inside the peel loop),
                     "replay" (host trace replay), "two_phase" (ANH-TE),
                     "basic" (ANH-BL) or "auto" (the richest strategy the
@@ -86,21 +87,28 @@ class NucleusConfig:
                     (default) resolves per device (``engine.
                     kernel_by_default``: the kernels on CUDA).  It is
                     written as ``use_pallas`` in ``to_dict()``.
-      mesh        — the sharded backend's device mesh; compress — its
-                    collective's compression (neither is ported yet: only
-                    backend='sharded' takes them).
-      build       — incidence builder: "eager" or "chunked" (memory-
-                    bounded; bit-identical).  "sharded" is not yet ported.
+      mesh        — the sharded backend's ``launch.mesh.Mesh`` (None =
+                    every visible card, or the CPU for a problem there,
+                    resolved at decompose() time).
+      compress    — the sharded reduction in float16 with a residual and
+                    drain steps: half the bytes, the same arrays.
+      build       — incidence builder: "eager", "chunked" (memory-
+                    bounded) or "sharded" (chunks planned onto shards,
+                    per-shard slab assembly, count-then-fill exchange;
+                    ``repro_torch.distbuild``); all bit-identical.
       memory_budget_bytes — the chunked build's intermediate-memory budget
                     (None = a 256 MiB default).  With backend='auto' it is
                     also the planner's memory ceiling: the gather backend
                     is preferred where the dense engine's per-round working
                     set would exceed it, and an eager build whose estimated
-                    working set exceeds it is upgraded to 'chunked' before
-                    the incidence structure is built.
+                    working set exceeds it is upgraded to 'sharded' (on
+                    several devices) or 'chunked' before the incidence
+                    structure is built.
       build_chunk_size — explicit source vertices per chunk (overrides the
                     budget-derived size; pins the sparse chunked path).
-      build_shards — the sharded builder's worker count (not yet ported).
+      build_shards — the sharded builder's worker count (None = the length
+                    of ``launch.mesh.make_host_mesh``, so build slabs line
+                    up with the peel mesh; build='sharded' only).
     """
 
     r: int = 2
@@ -122,8 +130,7 @@ class NucleusConfig:
 
         Backend x (method, hierarchy, knob) legality is derived from the
         registry's capability declarations; this method holds the
-        backend-independent axis checks, as the reference's does, and
-        raises "not yet ported" for the build knobs the port lacks.
+        backend-independent axis checks, as the reference's does.
         ``backend='auto'``/``hierarchy='auto'`` are accepted here; the
         planner resolves them at decompose() time.
         """
@@ -146,10 +153,6 @@ class NucleusConfig:
             raise ConfigError(
                 f"method='approx' needs delta > 0, got {self.delta}")
         backend_registry.check_capabilities(self)
-        if self.compress:
-            raise not_ported("compress=True")
-        if self.build == "sharded":
-            raise not_ported("build='sharded'")
         if self.build not in BUILDS:
             raise ConfigError(
                 f"build={self.build!r}; expected one of {BUILDS}")
@@ -178,8 +181,14 @@ class NucleusConfig:
                     f"build_chunk_size must be positive, got "
                     f"{self.build_chunk_size}")
         if self.build_shards is not None:
-            raise not_ported("build_shards (the sharded builder's worker "
-                             "count)")
+            if self.build != "sharded":
+                raise ConfigError(
+                    "build_shards is the sharded builder's worker count; "
+                    "set build='sharded' or drop it")
+            if self.build_shards <= 0:
+                raise ConfigError(
+                    f"build_shards must be positive, got "
+                    f"{self.build_shards}")
         return self
 
     @classmethod
@@ -265,8 +274,10 @@ class Decomposition:
                  n_s: Optional[int] = None,
                  plan: Optional[Plan] = None,
                  name: Optional[str] = None,
-                 version: int = 0):
+                 version: int = 0,
+                 peel_stats: Optional[Dict[str, Any]] = None):
         self.config = config
+        self._peel_stats = peel_stats
         self._name = name
         self._version = int(version)
         self._plan = plan
@@ -313,6 +324,13 @@ class Decomposition:
     @property
     def n_r(self) -> int:
         return int(self._core.shape[0])
+
+    @property
+    def peel_stats(self) -> Optional[Dict[str, Any]]:
+        """The backend's own record of the peel, where it keeps one: the
+        sharded backend's ``slabs``, ``devices``, ``collective`` and
+        ``drain_steps``.  Not serialized."""
+        return self._peel_stats
 
     # -- live-artifact identity --------------------------------------------
     @property
@@ -600,10 +618,13 @@ class Decomposition:
                 f"tree={'materialized' if self._tree is not None else 'lazy'})")
 
 
-def _refuse_unported(config: NucleusConfig) -> None:
-    """Raise before any build for a backend the port does not run yet."""
-    if config.backend == "sharded":
-        raise not_ported("backend='sharded'")
+def mesh_size(config: NucleusConfig, device) -> int:
+    """Devices of the mesh the sharded backend would run ``config`` on:
+    its ``mesh``, else every visible card (one CPU for a CPU device)."""
+    if config.mesh is not None:
+        return len(config.mesh)
+    from ..launch.mesh import make_host_mesh
+    return len(make_host_mesh(device))
 
 
 def resolve_problem(graph_or_problem, config: NucleusConfig,
@@ -617,21 +638,21 @@ def resolve_problem(graph_or_problem, config: NucleusConfig,
     ``memory_budget_bytes`` and the default eager build, the estimated
     eager working set (``distbuild.estimate_eager_build_bytes``) is
     compared with the budget before the build runs; if it does not fit,
-    the build is upgraded to 'chunked' (one device).  The arrays are
-    bit-identical either way; the plan's reasons record the upgrade."""
+    the build is upgraded to 'sharded' (several devices in the mesh the
+    sharded backend would use: slabs line up with the peel's) or
+    'chunked' (one device).  The arrays are bit-identical either way; the
+    plan's reasons record the upgrade."""
     dev = resolve_device(device)
     if isinstance(graph_or_problem, NucleusProblem):
         problem = graph_or_problem.to(dev)
         if (problem.r, problem.s) != (config.r, config.s):
             config = dataclasses.replace(config, r=problem.r, s=problem.s)
         config.validate()
-        _refuse_unported(config)
         return problem, config
     if not isinstance(graph_or_problem, Graph):
         raise TypeError(f"decompose() takes a Graph or a NucleusProblem, got "
                         f"{type(graph_or_problem).__name__}")
     config.validate()
-    _refuse_unported(config)
     g = graph_or_problem.to(dev)
     estimate = None
     if config.backend == AUTO and config.build == "eager" and \
@@ -641,10 +662,13 @@ def resolve_problem(graph_or_problem, config: NucleusConfig,
         dg, _ = pick_rank(g)
         estimate = estimate_eager_build_bytes(dg, config.s)
         if estimate > config.memory_budget_bytes:
-            config = dataclasses.replace(config, build="chunked")
+            upgraded = "sharded" if mesh_size(config, dev) > 1 \
+                else "chunked"
+            config = dataclasses.replace(config, build=upgraded)
     problem = build_problem(g, config.r, config.s, build=config.build,
                             memory_budget_bytes=config.memory_budget_bytes,
-                            chunk_size=config.build_chunk_size, device=dev)
+                            chunk_size=config.build_chunk_size,
+                            shards=config.build_shards, device=dev)
     if estimate is not None:
         problem.build_stats = dict(problem.build_stats or {},
                                    eager_estimate_bytes=estimate)
@@ -663,7 +687,8 @@ def plan_config(problem: NucleusProblem,
     estimate = stats.get("eager_estimate_bytes")
     plan = backend_registry.resolve_plan(
         config, n_r=problem.n_r, n_s=problem.n_s, n_sub=problem.n_sub,
-        device_kind=problem.device.type, n_devices=1,
+        device_kind=problem.device.type,
+        n_devices=mesh_size(config, problem.device),
         r=problem.r, s=problem.s, build=stats.get("build", config.build),
         eager_build_bytes=estimate)
     if estimate is not None and stats.get("build") == "chunked":
@@ -674,6 +699,15 @@ def plan_config(problem: NucleusProblem,
             f"({stats.get('n_chunks')} chunks of "
             f"{stats.get('chunk_size')} source vertices, fast path "
             f"{stats.get('fastpath')})",))
+    if stats.get("build") == "sharded":
+        # build telemetry rides the plan reasons, as the reference's, so
+        # plan_report() shows how the incidence structure was distributed
+        plan = dataclasses.replace(plan, reasons=plan.reasons + (
+            f"build 'sharded': {stats.get('n_shards')} shards x "
+            f"{stats.get('n_chunks')} chunks "
+            f"(chunks/shard={stats.get('chunks_per_shard')}), "
+            f"work skew {stats.get('skew'):.3f}, "
+            f"exchange {stats.get('exchange_bytes')} B",))
     if (plan.backend, plan.hierarchy) != (config.backend, config.hierarchy):
         changes = dict(backend=plan.backend, hierarchy=plan.hierarchy)
         if config.backend == AUTO and config.build == "eager":
@@ -693,7 +727,7 @@ def execute_plan(problem: NucleusProblem, config: NucleusConfig,
     return Decomposition(config, problem=problem, core=res.core,
                          rounds=res.rounds, order_round=res.order_round,
                          peel_value=res.peel_value, uf_parent=res.uf_parent,
-                         uf_L=res.uf_L, plan=plan)
+                         uf_L=res.uf_L, plan=plan, peel_stats=res.stats)
 
 
 def decompose(graph_or_problem, config: Optional[NucleusConfig] = None, *,

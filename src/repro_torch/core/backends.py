@@ -19,9 +19,8 @@ single source of backend truth:
 The four backends are registered in the reference's order and with its
 capabilities: ``dense`` (the peel engine on the device; fast lane
 ``"kcore"`` at (1, 2)), ``gather`` (the eager work-efficient loop),
-``sharded`` and ``nh`` (the sequential exact baseline).  ``sharded`` stays
-registered so the matrix is the reference's, but its run raises
-``ConfigError``: the sharded backend is ROADMAP Queue 1.9.
+``sharded`` (the engine over a device mesh, ``core.distributed``) and
+``nh`` (the sequential exact baseline).
 
 Capability semantics (how legality is derived):
 
@@ -55,12 +54,6 @@ AUTO = "auto"
 
 class ConfigError(ValueError):
     """An unsupported ``NucleusConfig`` combination (caught at validate())."""
-
-
-def not_ported(what: str, queue: str = "1.9") -> ConfigError:
-    """The error for a reference feature the port does not run yet."""
-    return ConfigError(f"{what} is not yet ported to repro_torch (ROADMAP "
-                       f"Queue {queue})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +98,8 @@ class BackendResult:
     Optional fields are None exactly when the capabilities say the backend
     does not produce them (``order_round``/``peel_value`` need
     ``records_trace``; ``uf_parent``/``uf_L`` need a fused hierarchy).
+    ``stats`` is the run's own record where a backend keeps one (the
+    sharded backend's slabs, devices, collective and drain steps).
     """
 
     core: np.ndarray
@@ -113,6 +108,7 @@ class BackendResult:
     peel_value: Optional[np.ndarray] = None
     uf_parent: Optional[np.ndarray] = None
     uf_L: Optional[np.ndarray] = None
+    stats: Optional[Dict[str, Any]] = None
 
 
 @runtime_checkable
@@ -341,9 +337,9 @@ def resolve_plan(config, *, n_r: int, n_s: int, n_sub: int,
     Problem facts come in as plain ints so the rules are unit-testable;
     ``decompose()`` passes them from the built problem and the device facts
     from the resolved torch device: ``device_kind`` is its type ("cuda" or
-    "cpu"; None: "cuda" when a card is present) and ``n_devices`` is 1
-    until the sharded backend is ported.  The rules, in priority order (as
-    the reference's):
+    "cpu"; None: "cuda" when a card is present) and ``n_devices`` the
+    length of the mesh the sharded backend would use (None: 1).  The
+    rules, in priority order (as the reference's):
 
       1. an explicit backend is kept as-is;
       2. knobs bind: ``mesh``/``compress`` force the sharded collective,
@@ -523,7 +519,20 @@ def _run_gather(problem: NucleusProblem, config) -> BackendResult:
 
 
 def _run_sharded(problem: NucleusProblem, config) -> BackendResult:
-    raise not_ported("backend='sharded'")
+    from ..launch.mesh import make_host_mesh
+    from .distributed import sharded_decomposition
+    mesh = config.mesh if config.mesh is not None \
+        else make_host_mesh(problem.device)
+    fused = config.hierarchy == "fused"
+    stats: Dict[str, Any] = {}
+    out = sharded_decomposition(problem, mesh, kind=config.method,
+                                delta=config.delta, compress=config.compress,
+                                hierarchy=fused, stats=stats)
+    if fused:
+        core, rounds, parent, L, raw = out
+        return BackendResult(core=core, rounds=rounds, peel_value=raw,
+                             uf_parent=parent, uf_L=L, stats=stats)
+    return BackendResult(core=out[0], rounds=out[1], stats=stats)
 
 
 def _run_nh(problem: NucleusProblem, config) -> BackendResult:
@@ -554,7 +563,7 @@ register(_Registered(
     capabilities=BackendCapabilities(
         methods=("exact", "approx"), compiled_peel=True, records_trace=False,
         knobs=frozenset({"mesh", "compress"}),
-        summary="the distributed engine (not yet ported)"),
+        summary="the distributed engine over a device mesh"),
     _run=_run_sharded))
 
 register(_Registered(

@@ -324,7 +324,8 @@ def local_converge(inc_sub: torch.Tensor, owner: torch.Tensor,
 
 def peel_round(inc_rid, deg, key, s_alive, core, order_round, level: int,
                rounds: int, *, scatter: Optional[Callable] = None,
-               fused_round: Optional[Callable] = None):
+               fused_round: Optional[Callable] = None,
+               reduce: Optional[Callable] = None):
     """THE peel-round body, at a level the schedule already chose.
 
     inc_rid: (n_s, C) member r-clique ids (-1 = ghost padding);
@@ -338,6 +339,9 @@ def peel_round(inc_rid, deg, key, s_alive, core, order_round, level: int,
     rounds) -> (deg, key, core, order) replaces the whole select + gather
     + decrement chain (the megakernel); s_alive then passes through
     untouched, because the megakernel derives liveness from ``key``.
+    reduce(delta) -> delta turns the local decrement (any leading shape
+    over the r-clique axis) into the global (n_r,) one before it lands:
+    the sharded engine's collective.
     """
     n_r = deg.shape[0]
     if fused_round is not None:
@@ -359,6 +363,9 @@ def peel_round(inc_rid, deg, key, s_alive, core, order_round, level: int,
         delta = scatter_decrement(inc_rid, dead_now, n_r)
     else:
         delta = scatter(dead_now)
+    if reduce is not None:
+        # a peeled clique's decrement never lands, so it is not sent
+        delta = reduce(torch.where(peeled, 0, delta))
     # peeled cliques keep deg frozen (their core is already assigned)
     deg = torch.where(peeled, deg, deg - delta)
     return deg, peel_key(deg, peeled), s_alive, core, order_round, a_mask
@@ -369,7 +376,10 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
                     scatter: Optional[Callable] = None,
                     fused_round: Optional[Callable] = None,
                     hierarchy: bool = False,
-                    peeled0: Optional[torch.Tensor] = None):
+                    peeled0: Optional[torch.Tensor] = None,
+                    reduce_delta: Optional[Callable] = None,
+                    resid0=None,
+                    gather_links: Optional[Callable] = None):
     """Drive ``peel_round`` to the fixpoint.
 
     Returns (core, order_round, rounds) — raw bucket values, the peel
@@ -380,6 +390,23 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
 
     peeled0 marks r-cliques as peeled before round 0: they never enter a
     bucket, never set the minimum, emit no links and keep core/order -1.
+
+    The sharded engine's two hooks, as the reference's (both None on the
+    dense path, which they leave unchanged):
+
+      * ``reduce_delta(delta, resid) -> (delta, resid)`` turns the round's
+        local decrement into the global one, after the decrement and
+        before it lands; ``resid`` is its carry, starting at ``resid0``.
+        A carry that is not None is ``(residual, pending)``: ``pending``
+        is a 0-dim int32 tensor, nonzero while a residual waits to be
+        sent.  The engine reads it in the round's one sync, with the
+        minimum key, and while it is set runs *drain steps*,
+        ``reduce_delta(None, resid)``: each lands more of the residual,
+        peels nothing, keeps the level and is not counted in ``rounds``.
+        So a minimum is only taken over fully landed degrees.
+      * ``gather_links(la, lb) -> (la, lb)`` turns the round's local links
+        into the ones this replica folds, before ``link_fixpoint``; it is
+        called every round of a hierarchy run, also with no local rows.
     """
     dev = deg0.device
     n_r = int(deg0.shape[0])
@@ -404,18 +431,43 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
     deg = deg0
     sched = schedule.init_carry()
     rounds = 0
+    reduce = None
+    resid = resid0
+    if reduce_delta is not None:
+        if fused_round is not None:
+            raise ValueError("reduce_delta needs the round's decrement; the "
+                             "fused round body computes deg itself")
+
+        def reduce(delta):
+            nonlocal resid
+            delta, resid = reduce_delta(delta, resid)
+            return delta
     while rounds < max_rounds:
         # the round's one host sync: the minimum key, which is the minimum
         # live degree, and PEELED exactly when every r-clique is peeled
-        dmin = int(key.min())
+        # (with a residual carry, the pending flag rides the same sync)
+        if resid is None:
+            dmin = int(key.min())
+        else:
+            dmin, pending = torch.stack([key.min(), resid[1]]).tolist()
+            if pending and dmin != PEELED:
+                peeled = key == PEELED
+                deg = torch.where(peeled, deg, deg - reduce(None))
+                key = peel_key(deg, peeled)
+                continue
         if dmin == PEELED:
             break
         sched, level = schedule.next_level(sched, dmin)
         deg, key, s_alive, core, order, a_mask = peel_round(
             inc_rid, deg, key, s_alive, core, order, level, rounds,
-            scatter=scatter, fused_round=fused_round)
-        if hierarchy and n_s > 0:
-            la, lb, last = round_links(inc_rid, a_mask, last)
+            scatter=scatter, fused_round=fused_round, reduce=reduce)
+        if hierarchy and (n_s > 0 or gather_links is not None):
+            if n_s > 0:
+                la, lb, last = round_links(inc_rid, a_mask, last)
+            else:
+                la = lb = torch.zeros((0,), dtype=INT, device=dev)
+            if gather_links is not None:
+                la, lb = gather_links(la, lb)
             if la.numel():
                 parent, L = link_fixpoint(parent, L, core, la, lb,
                                           max_gens=max_gens)

@@ -8,7 +8,7 @@ Materialized once per problem, on one device:
   mem CSR               r-clique id -> incident s-clique ids
   deg0        (n_r,)    initial s-clique-degree of each r-clique
 
-Two builders produce bit-identical output, as in the reference:
+Three builders produce bit-identical output, as in the reference:
 
   * ``build="eager"``   — one level-synchronous expansion over all source
     vertices, one sort-join, one CSR sort.
@@ -20,13 +20,16 @@ Two builders produce bit-identical output, as in the reference:
     count pass is the tricount kernel ``(D @ Dᵀ) ⊙ D`` on the oriented 0/1
     adjacency (``kernels/csrc/tricount.cu`` on the card), and the fill
     extracts triangles from dense membership rows ``D[u] * D[v]``.
+  * ``build="sharded"`` — the chunks are planned onto shards, each shard
+    expands its own seed range and joins its rows into its slab of the
+    incidence table, and the membership CSR comes from a count-then-fill
+    exchange (``repro_torch.distbuild``).
 
 ``NucleusProblem.build_stats`` carries the reference's keys.  ``build``,
 ``chunk_size``, ``n_chunks``, ``memory_budget_bytes`` and ``fastpath``
 equal the reference's for the same graph and budget;
 ``peak_intermediate_bytes`` is the port's own account of the device bytes
 its builder holds, which differs from the reference's host-numpy meter.
-The sharded builder is ROADMAP Queue 1.13.
 """
 from __future__ import annotations
 
@@ -39,14 +42,15 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, same_device
+from ..distbuild.exchange import assemble_mem_csr
 from ..graph.cliques import (expand_levels_metered, iter_clique_chunks,
                              lexsort_rows, sort_join, subset_columns)
 from ..graph.container import (Digraph, Graph, INT, _build_digraph,
-                               csr_from_pairs, orient_arcs)
+                               csr_from_pairs, orient, orient_arcs)
 from ..graph.orientation import approx_degeneracy_rank, degree_rank
 from ..kernels import tricount
 
-BUILDS = ("eager", "chunked")
+BUILDS = ("eager", "chunked", "sharded")
 # the arrays that define a built problem, in fingerprint order
 INCIDENCE_FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids",
                     "deg0")
@@ -142,28 +146,54 @@ def pick_rank(g: Graph) -> Tuple[Digraph, str]:
     return _build_digraph(g.n, src, dst), name
 
 
-def build_problem(g: Graph, r: int, s: int, *, build: str = "eager",
+def _resolve_digraph(g: Graph, rank: Optional[torch.Tensor]
+                     ) -> Tuple[Digraph, str]:
+    """The caller's orientation (``"caller"``), else ``pick_rank``'s."""
+    if rank is None:
+        return pick_rank(g)
+    return orient(g, torch.as_tensor(rank, device=g.device)), "caller"
+
+
+def build_problem(g: Graph, r: int, s: int,
+                  rank: Optional[torch.Tensor] = None, *,
+                  build: str = "eager",
                   memory_budget_bytes: Optional[int] = None,
                   chunk_size: Optional[int] = None,
                   fastpath: Optional[bool] = None,
+                  shards: Optional[int] = None,
                   device: DeviceLike = None) -> NucleusProblem:
     """Build the (r, s) incidence structure on `device` (None: the card).
 
     build="eager" is the one-burst builder; build="chunked" bounds the
     intermediate memory by ``memory_budget_bytes`` (None: 256 MiB) or an
     explicit ``chunk_size`` in source vertices (which pins the sparse
-    seed-chunked path).  ``fastpath`` forces the dense (2,3) count pass on
-    or off (None: on when (r, s) == (2, 3), no chunk size is given and
-    ``5·n²·4 <= budget``; chunked builder only).  Both builders give
-    bit-identical arrays.  The orientation is ``pick_rank``'s (the
-    reference's caller-supplied ``rank`` is not ported in this slice)."""
+    seed-chunked path); build="sharded" plans the chunks onto ``shards``
+    workers (None: the length of ``launch.mesh.make_host_mesh``) and
+    assembles their slabs directly (``repro_torch.distbuild``).
+    ``fastpath`` forces the dense (2,3) count pass on or off (None: on
+    when (r, s) == (2, 3), no chunk size is given and ``5·n²·4 <=
+    budget``; chunked builder only).  Every builder gives bit-identical
+    arrays.  ``rank`` is the caller's orientation key (``orientation ==
+    "caller"``); None picks one (``pick_rank``)."""
     if not 1 <= r < s:
         raise ValueError(f"need 1 <= r < s, got (r, s) = ({r}, {s})")
     if build not in BUILDS:
-        raise ValueError(f"build={build!r} is not ported yet; the port "
-                         f"builds {BUILDS}")
+        raise ValueError(f"build={build!r}; expected one of {BUILDS}")
+    if shards is not None and build != "sharded":
+        raise ValueError(
+            f"shards={shards} is the sharded builder's worker count; set "
+            f"build='sharded' or drop it (got build={build!r})")
     g = g.to(resolve_device(device))
-    dg, orientation = pick_rank(g)
+    if build == "sharded":
+        if fastpath:
+            raise ValueError(
+                "fastpath=True is the chunked builder's dense (2,3) count "
+                "pass; it does not apply to build='sharded'")
+        from ..distbuild import build_problem_sharded
+        return build_problem_sharded(
+            g, r, s, rank, n_shards=shards,
+            memory_budget_bytes=memory_budget_bytes, chunk_size=chunk_size)
+    dg, orientation = _resolve_digraph(g, rank)
     if build == "eager":
         return _build_eager(g, r, s, dg, orientation)
     return _build_chunked(g, r, s, dg, orientation,
@@ -260,47 +290,44 @@ def _assemble(g: Graph, r: int, s: int, r_rows: torch.Tensor,
         r_rows.reshape(0, r)
     n_r = int(r_table.shape[0])
 
-    # blocked sort-join: ids are a per-query-row function of (table, row),
-    # so block boundaries cannot change them
-    q_block = max(1, int(budget // max(8 * 4 * C * max(r, 1), 1)))
+    q_block = join_block_rows(budget, r, s)
     inc = torch.empty((n_s, C), dtype=INT, device=dev)
-    join_bytes = 0
-    for b0 in range(0, n_s, q_block):
-        blk = s_rows[b0:b0 + q_block]
-        qs = torch.cat([blk[:, list(cols)] for cols in subset_columns(s, r)],
-                       dim=0)
-        join_bytes = max(join_bytes, 3 * qs.numel() * 4)
-        inc[b0:b0 + blk.shape[0]] = sort_join(r_table, qs).reshape(C, -1).t()
-        del qs
-
-    # two-pass mem-CSR: counts (= deg0) first, then a cursor fill that
-    # reproduces the stable argsort grouping of csr_from_pairs
-    deg0 = torch.bincount(inc.reshape(-1).long(), minlength=n_r).to(INT) \
-        if n_s else torch.zeros((n_r,), dtype=INT, device=dev)
-    mem_offsets = torch.zeros((n_r + 1,), dtype=INT, device=dev)
-    mem_offsets[1:] = torch.cumsum(deg0, 0, dtype=torch.int64).to(INT)
-    mem_sids = torch.empty((n_s * C,), dtype=INT, device=dev)
-    cursor = mem_offsets[:-1].to(torch.int64)
-    for b0 in range(0, n_s, q_block):
-        blk = inc[b0:b0 + q_block]
-        rid = blk.reshape(-1).long()
-        sid = torch.repeat_interleave(
-            torch.arange(b0, b0 + blk.shape[0], dtype=INT, device=dev), C)
-        ordr = torch.argsort(rid, stable=True)
-        rid_s, sid_s = rid[ordr], sid[ordr]
-        uniq, counts = torch.unique_consecutive(rid_s, return_counts=True)
-        run_starts = torch.cumsum(counts, 0) - counts
-        occ = torch.arange(rid_s.numel(), device=dev) - \
-            torch.repeat_interleave(run_starts, counts)
-        mem_sids[cursor[rid_s] + occ] = sid_s
-        cursor[uniq] += counts
-
+    join_bytes = join_into(inc, 0, s_rows, r_table, r, s, q_block)
+    # two-pass mem-CSR over one slab: counts (= deg0) first, then a cursor
+    # fill that reproduces the stable argsort grouping of csr_from_pairs
+    mem_offsets, mem_sids, deg0, _ = assemble_mem_csr(inc, [0, n_s], n_r,
+                                                      q_block)
     stats["peak_intermediate_bytes"] = max(
         stats.get("peak_intermediate_bytes", 0), join_bytes)
     return NucleusProblem(
         g=g, r=r, s=s, r_cliques=r_table.contiguous(), inc_rid=inc,
         mem_offsets=mem_offsets, mem_sids=mem_sids, deg0=deg0,
         orientation=orientation, build_stats=stats)
+
+
+def join_block_rows(budget: int, r: int, s: int) -> int:
+    """Query rows per block of the blocked sort-join, as the reference
+    sizes them from the budget."""
+    return max(1, int(budget // max(8 * 4 * comb(s, r) * max(r, 1), 1)))
+
+
+def join_into(inc: torch.Tensor, base: int, s_rows: torch.Tensor,
+              r_table: torch.Tensor, r: int, s: int, q_block: int) -> int:
+    """Blocked sort-join of the s-clique rows into ``inc[base:base +
+    len(s_rows)]``; returns the largest block's transient bytes.  Ids are
+    a per-query-row function of (table, row), so block and slab
+    boundaries cannot change them."""
+    C = comb(s, r)
+    join_bytes = 0
+    for b0 in range(0, int(s_rows.shape[0]), q_block):
+        blk = s_rows[b0:b0 + q_block]
+        qs = torch.cat([blk[:, list(cols)] for cols in subset_columns(s, r)],
+                       dim=0)
+        join_bytes = max(join_bytes, 3 * qs.numel() * 4)
+        inc[base + b0:base + b0 + blk.shape[0]] = \
+            sort_join(r_table, qs).reshape(C, -1).t()
+        del qs
+    return join_bytes
 
 
 def _fastpath_ok(r: int, s: int, dg: Digraph, budget: int) -> bool:

@@ -39,7 +39,11 @@ Where the port departs from the reference:
   * **The manifest** has its own format, ``"repro_torch.session-manifest"``,
     because its bucket records carry ``e_pad`` in place of a
     ``ScatterSpec``; a reference manifest is refused.
-  * ``backend="sharded"`` is not yet ported and raises.
+  * **Sharded pools** run ``execute_plan`` on the sharded backend, unpadded
+    like the dense ones.  Their bucket is the reference's: ``shards`` is
+    the mesh's length and ``n_s_pad`` the shard-multiple class
+    (``shard_bucket_size``); kind ``"sharded"`` keeps them out of the
+    manifest, so a restarted server warms them on first traffic.
 
 The kernels are built once per process (and loaded from the build cache
 across restarts, ``serve.cache.init_persistent_cache``); ``prewarm`` launches
@@ -58,8 +62,8 @@ from ..device import DeviceLike, resolve_device
 from ..graph.container import INT
 from ..kernels.peel_round import PEELED, fused_peel_round
 from ..kernels.segment_sum import segment_sum
-from .api import (Decomposition, NucleusConfig, execute_plan, plan_config,
-                  resolve_problem)
+from .api import (Decomposition, NucleusConfig, execute_plan, mesh_size,
+                  plan_config, resolve_problem)
 from .engine import MEGAKERNEL_PLAN_BUDGET_BYTES, kernel_by_default
 from .incidence import NucleusProblem
 from .kcore import takes_kcore_lane
@@ -89,8 +93,8 @@ def bucket_size(n: int, floor: int = DEFAULT_BUCKET_FLOOR) -> int:
 def shard_bucket_size(n: int, n_shards: int,
                       floor: int = DEFAULT_BUCKET_FLOOR) -> int:
     """Shard-aware shape class: the pow2 bucket rounded UP to a multiple
-    of ``n_shards`` (the sharded pools' s-clique axis; the sharded backend
-    itself is not yet ported)."""
+    of ``n_shards`` (the sharded pools' s-clique axis, as the
+    reference's)."""
     b = bucket_size(n, floor)
     n_shards = max(int(n_shards), 1)
     return -(-b // n_shards) * n_shards
@@ -205,7 +209,11 @@ class Session:
         # the reference's gate: what its padded plan allocates, (e_pad, C)
         # int32 with the edge axis pow2-bucketed
         plan_bytes = 4 * padded_plan_edges(problem) * problem.n_sub
-        if config.backend != "dense" or problem.n_r == 0 or (
+        if config.backend == "sharded" and problem.n_r > 0:
+            warm = self._bucket_hit(self._bucket(problem, config).astuple(),
+                                    meta={"kind": "sharded"})
+            self._count("warm" if warm else "cold")
+        elif config.backend != "dense" or problem.n_r == 0 or (
                 wants_kernel and plan_bytes > MEGAKERNEL_PLAN_BUDGET_BYTES):
             self._count("fallback")
         else:
@@ -237,20 +245,29 @@ class Session:
     # -- shape buckets -----------------------------------------------------
     def _bucket(self, problem: NucleusProblem, config: NucleusConfig, *,
                 wants_kernel: Optional[bool] = None) -> _Bucket:
-        """The shape class ``problem`` lands in under ``config``."""
-        if wants_kernel is None:
-            wants_kernel = self._wants_kernel(config)
+        """The shape class ``problem`` lands in under ``config``: on the
+        sharded backend the reference's shard-multiple class over the
+        mesh's devices, with no kernel plan."""
+        shards = 0
+        n_s_pad = bucket_size(problem.n_s, self.bucket_floor)
         kernel = None
-        if wants_kernel and problem.n_s > 0:
-            kernel = padded_plan_edges(problem)
+        if config.backend == "sharded":
+            shards = mesh_size(config, problem.device)
+            n_s_pad = shard_bucket_size(problem.n_s, shards,
+                                        self.bucket_floor)
+        else:
+            if wants_kernel is None:
+                wants_kernel = self._wants_kernel(config)
+            if wants_kernel and problem.n_s > 0:
+                kernel = padded_plan_edges(problem)
         return _Bucket(
             method=config.method, r=config.r, s=config.s,
             fused=config.hierarchy == "fused",
             n_r_pad=bucket_size(problem.n_r, self.bucket_floor),
-            n_s_pad=bucket_size(problem.n_s, self.bucket_floor),
+            n_s_pad=n_s_pad,
             schedule=canonical_schedule(config.method, problem.n_sub,
                                         config.delta, problem.g.n),
-            kernel=kernel)
+            kernel=kernel, shards=shards)
 
     def bucket_key(self, problem: NucleusProblem,
                    config: Optional[NucleusConfig] = None) -> Tuple:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_counts, ref
+from . import count_launch, ref
 from ._checks import kernel_device, need_int32
 
 HEAD_DIMS = (64, 128, 160)
@@ -108,6 +108,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _IS_F32[q.dtype], B, H, Hkv, Sq, Sk, D, int(bool(causal)),
             *strides, stream)
-    launch_counts["flash_attention"] += 1
+    count_launch("flash_attention")
     check(status, "repro_flash_attention")
     return out

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_counts, ref
+from . import count_launch, ref
 from ._checks import kernel_device, need, need_int32
 
 INT = torch.int32
@@ -107,6 +107,6 @@ def fused_peel_round(offsets: torch.Tensor, members: torch.Tensor,
             deg.data_ptr(), key.data_ptr(), core.data_ptr(),
             order.data_ptr(), *(o.data_ptr() for o in outs), n_r, level, rnd,
             stream)
-    launch_counts["peel_round"] += 1
+    count_launch("peel_round")
     check(status, "repro_peel_round")
     return outs

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_counts, ref
+from . import count_launch, ref
 from ._checks import kernel_device, need
 
 INT = torch.int32
@@ -64,6 +64,6 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
         status = getattr(lib, _ENTRY[data.dtype])(
             data.data_ptr(), ids.data_ptr(), E, d, n_segments,
             out.data_ptr(), stream)
-    launch_counts["segment_sum"] += 1
+    count_launch("segment_sum")
     check(status, _ENTRY[data.dtype])
     return out

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_counts, ref
+from . import count_launch, ref
 from ._checks import kernel_device, need
 
 WORD = 32  # columns per bitset word
@@ -63,7 +63,7 @@ def _masked_product(adj: torch.Tensor, op_transposed: bool, plain,
         status = lib.repro_tricount(
             adj.data_ptr(), n, int(op_transposed), rows.data_ptr(),
             cols.data_ptr(), out.data_ptr(), bad.data_ptr(), stream)
-    launch_counts["tricount"] += 1
+    count_launch("tricount")
     check(status, "repro_tricount")
     if int(bad.item()):
         raise ValueError(f"{name}: adj holds a value other than 0 and 1")

@@ -17,7 +17,9 @@ Named live artifacts ride the same pools: ``route()`` publishes a
 decomposition under ``Request.artifact``, ``update()`` applies a
 ``GraphDelta`` through ``Session.update`` and re-publishes the successor
 under the same name with ``version + 1``.  Every pool runs on the router's
-``device`` (``None``: the card).
+``device`` (``None``: the card); a sharded pool runs on its config's
+``mesh`` (``None``: every visible card), so ``pool(config)`` with a mesh
+opens the pool that requests of that class then reach.
 """
 from __future__ import annotations
 
@@ -223,10 +225,14 @@ class Router:
             artifacts = dict(self._artifacts)
 
         def bucket_row(sess: Session, k: Tuple, v: int) -> Dict[str, Any]:
-            # decompose buckets carry shape-class meta; everything else is
-            # a stream-stage key (see Session._bucket_hit)
-            if sess._bucket_meta.get(k, {}).get("kind") == "decompose":
+            # decompose/sharded buckets carry shape-class meta; everything
+            # else is a stream-stage key (see Session._bucket_hit)
+            kind = sess._bucket_meta.get(k, {}).get("kind")
+            if kind == "decompose":
                 return {"n_r_pad": k[4], "n_s_pad": k[5], "count": int(v)}
+            if kind == "sharded":
+                return {"n_r_pad": k[4], "n_s_pad": k[5],
+                        "shards": int(k[8]), "count": int(v)}
             return {"stream_stage": str(k[0]), "count": int(v)}
 
         pool_rows = []

@@ -28,7 +28,8 @@ _FRONTEND_KEYS = ("submitted", "served", "failed", "rejected_admission",
 _POOL_KEYS = {"config": dict, "plan": (dict, type(None)), "stats": dict,
               "hit_rate": float, "buckets": list,
               # builder telemetry of the pool's last decomposition (None
-              # until one carries build_stats)
+              # until one carries build_stats); sharded builds report
+              # n_shards / chunks_per_shard / skew / exchange_bytes here
               "build": (dict, type(None))}
 _POOL_STAT_KEYS = ("decompositions", "warm", "cold", "fallback", "updates",
                    "stream_warm", "stream_cold", "evictions", "prewarmed")

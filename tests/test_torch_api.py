@@ -27,6 +27,10 @@ from repro_torch.core import (build_problem, canonicalize_labels,
                               dense_coreness, make_schedule)
 from repro_torch.graph.generators import golden_suite
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -104,10 +108,14 @@ def test_decompose_matches_reference(name, r, s, method):
 
 
 @pytest.mark.parametrize("bad,word", [
-    ({"backend": "sharded"}, "not yet ported"),
-    ({"build": "sharded"}, "not yet ported"),
-    ({"backend": "sharded", "compress": True}, "not yet ported"),
-    ({"build": "chunked", "build_shards": 2}, "not yet ported"),
+    ({"build": "chunked", "build_shards": 2},
+     "build_shards is the sharded builder's worker count"),
+    ({"build": "sharded", "build_shards": 0}, "build_shards must be "
+     "positive"),
+    ({"backend": "dense", "compress": True}, "only applies to a sharded "
+     "collective"),
+    ({"backend": "gather", "hierarchy": "replay", "mesh": ("cpu",)},
+     "a mesh only applies to"),
     ({"backend": "tpu"}, "expected one of"),
     ({"method": "approx", "delta": 0.0}, "delta > 0"),
     ({"r": 3, "s": 3}, "1 <= r < s"),

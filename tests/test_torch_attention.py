@@ -20,6 +20,10 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 GRID = [  # (B, H, Sq, Sk, D, bq, bk) of tests/test_kernels.py

@@ -6,8 +6,8 @@ reference's (``repro.core.backends``).
   triples literally (``tests/test_backends.py`` pins the same list).
 * Validation: each error of ``tests/test_facade.py::
   test_config_validation_errors_are_actionable`` has a port counterpart
-  raising ``ConfigError`` on the same config; the sharded pieces raise
-  "not yet ported".
+  raising ``ConfigError`` on the same config; the sharded pieces, once
+  refused, run and equal the dense path (``NOT_PORTED`` is empty).
 * The planner: on a grid of facts (n_r across the tiny threshold, budgets
   above and below the dense round bytes, cpu vs an accelerator, (1,2) vs
   (2,3), every hierarchy including 'auto') the port's ``resolve_plan``
@@ -25,28 +25,35 @@ import itertools
 import json
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core.backends as JB
 import repro.core.planner_profile as JPP
 from repro.core.api import NucleusConfig as JConfig
 from repro.core.api import decompose as j_decompose
+from repro.core.incidence import NucleusProblem as JProblem
 from repro.distbuild import estimate_eager_build_bytes as j_estimate
-from repro.graph.container import make_graph as j_make_graph
-from repro.core.incidence import pick_rank as j_pick_rank
+from repro.graph.container import Digraph as JDigraph, Graph as JGraph
 
 import repro_torch.core.backends as B
 import repro_torch.core.planner_profile as PP
 from repro_torch import ConfigError, NucleusConfig, decompose
 from repro_torch.core import build_problem
 from repro_torch.core.api import NOT_PORTED
-from repro_torch.core.incidence import pick_rank
+from repro_torch.core.incidence import INCIDENCE_FIELDS, pick_rank
 from repro_torch.distbuild import estimate_eager_build_bytes
 from repro_torch.graph.generators import golden_suite
+from repro_torch.launch.mesh import Mesh
 
 # the facade file's parity checks, run here on its two costliest cells
 from test_torch_facade import HEAVY, JSON_TRIPLES, check_cell, check_json
+
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.fast
 
@@ -162,17 +169,22 @@ def test_illegal_configs_raise_in_both(kw):
 
 
 def test_sharded_pieces_raise_not_yet_ported():
+    """Each config the port once refused as "not yet ported" now runs and
+    gives the dense path's arrays; ``NOT_PORTED`` is empty."""
     g = golden_suite()["k4"](device="cpu")
+    want = decompose(g, NucleusConfig(), device="cpu")
     for kw in (dict(backend="sharded"), dict(build="sharded"),
                dict(backend="sharded", compress=True),
-               dict(backend="sharded", hierarchy="none", mesh=object()),
-               dict(build="chunked", build_shards=2)):
-        with pytest.raises(ConfigError, match="not yet ported") as e:
-            decompose(g, NucleusConfig(**kw), device="cpu")
-        assert "Queue 1.9" in str(e.value)
-    # Decomposition.update is ported (tests/test_torch_streaming.py)
-    assert len(NOT_PORTED) == 4
-    assert not any("update" in what for what in NOT_PORTED)
+               dict(backend="sharded", hierarchy="none",
+                    mesh=Mesh(("cpu",) * 2)),
+               dict(build="sharded", build_shards=2)):
+        got = decompose(g, NucleusConfig(**kw), device="cpu")
+        assert got.rounds == want.rounds
+        np.testing.assert_array_equal(got.core, want.core)
+        if got.uf_parent is not None:
+            np.testing.assert_array_equal(got.uf_parent, want.uf_parent)
+            np.testing.assert_array_equal(got.uf_L, want.uf_L)
+    assert NOT_PORTED == ()
 
 
 def test_config_dict_has_the_reference_keys():
@@ -341,9 +353,13 @@ def test_auto_upgrades_the_build_under_a_budget():
     becomes 'chunked', the plan says why, and the arrays are the eager
     build's."""
     g = golden_suite()["planted40"](device="cpu")
-    jg = j_make_graph(g.n, g.edges.numpy())
-    est = estimate_eager_build_bytes(pick_rank(g)[0], 3)
-    assert est == j_estimate(j_pick_rank(jg)[0], 3)
+    dg = pick_rank(g)[0]
+    est = estimate_eager_build_bytes(dg, 3)
+    # the reference's estimate of the same DAG (pick_rank is held to the
+    # reference's in tests/test_torch_incidence.py)
+    assert est == j_estimate(JDigraph(n=dg.n, **{
+        f: jnp.asarray(getattr(dg, f).numpy())
+        for f in ("offsets", "neighbors", "adj", "outdeg")}), 3)
     dec = decompose(g, NucleusConfig(backend="auto",
                                      memory_budget_bytes=est - 1),
                     device="cpu")
@@ -358,9 +374,16 @@ def test_auto_upgrades_the_build_under_a_budget():
     # budget from the resolved eager config; the reference raises
     assert fits.config.memory_budget_bytes is None
     assert fits.plan.backend == "dense"
-    with pytest.raises(JB.ConfigError, match="memory_budget_bytes"):
-        j_decompose(jg, JConfig(backend="auto", memory_budget_bytes=est))
+    # the reference raises in plan_config, after its build: fed the eager
+    # arrays (its jnp eager build compiles per op), it raises there alike
     eager = build_problem(g, 2, 3, device="cpu")
+    with pytest.raises(JB.ConfigError, match="memory_budget_bytes"):
+        j_decompose(JProblem(g=JGraph(n=g.n,
+                                      edges=jnp.asarray(g.edges.numpy())),
+                             r=2, s=3, orientation=eager.orientation,
+                             **{f: jnp.asarray(getattr(eager, f).numpy())
+                                for f in INCIDENCE_FIELDS}),
+                    JConfig(backend="auto", memory_budget_bytes=est))
     np.testing.assert_array_equal(dec.problem.mem_sids.numpy(),
                                   eager.mem_sids.numpy())
     np.testing.assert_array_equal(dec.core, fits.core)

@@ -45,6 +45,10 @@ from repro_torch.graph.cliques import (count_cliques, iter_clique_chunks,
                                        list_cliques, unique_rows)
 from repro_torch.kernels import ops, tricount
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -26,6 +26,10 @@ from repro_torch.kernels.tricount import (tricount_oriented,
                                           tricount_per_edge,
                                           tricount_per_edge_plain)
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda_device():
@@ -463,3 +467,42 @@ def test_update_on_card(cuda_device):
         kmax = int(fresh.core.max())
         for c in (1, max(kmax // 2, 1), kmax):
             np.testing.assert_array_equal(new.cut(c), fresh.cut(c))
+
+
+@pytest.mark.cuda
+def test_sharded_lane_on_card(cuda_device):
+    """The sharded build and backend on the card: three slabs of one card
+    launch the segment sum three times a round and no megakernel, the
+    arrays equal the CPU's dense decompose, and compress=True (exact, with
+    drain steps on the star) gives the same arrays; make_host_mesh() is
+    every card and never the CPU."""
+    from repro_torch import NucleusConfig, decompose
+    from repro_torch.graph.container import Graph
+    from repro_torch.graph.generators import community_power_law
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    host = make_host_mesh()
+    assert len(host) == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in host)
+    g = community_power_law(3_000, seed=4, device="cpu")
+    mesh = Mesh(("cuda:0",) * 3)
+    want = decompose(g, NucleusConfig(), device="cpu")
+    for compress in (False, True):
+        before = dict(launch_counts)
+        got = decompose(g, NucleusConfig(
+            backend="sharded", build="sharded", build_shards=3, mesh=mesh,
+            compress=compress), device=cuda_device)
+        assert launch_counts["segment_sum"] - before["segment_sum"] == \
+            3 * got.rounds
+        assert launch_counts["peel_round"] == before["peel_round"]
+        assert got.rounds == want.rounds
+        for f in ("core", "uf_parent", "uf_L"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+    leaves = torch.arange(1, 70_001, dtype=torch.int32)
+    star = Graph(n=70_001, edges=torch.stack([torch.zeros_like(leaves),
+                                              leaves], dim=1))
+    hub = decompose(star, NucleusConfig(r=1, s=2, backend="sharded",
+                                        compress=True,
+                                        mesh=Mesh(("cuda:0",) * 2)),
+                    device=cuda_device)
+    assert int(hub.core.max()) == 1 and hub.peel_stats["drain_steps"] > 0

@@ -32,6 +32,10 @@ from repro_torch.core.schedule import PeelSchedule
 from repro_torch.graph import make_graph
 from repro_torch.graph.generators import golden_suite
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0")

@@ -6,6 +6,9 @@ repro.decompose and the golden fixtures, and the JSON artifact.
   equals the reference's ``decompose`` on the same incidence arrays:
   ``core``, ``rounds``, ``order_round``, ``peel_value``, the forest, the
   tree's ``parent``/``level`` and ``cut`` at every level, bit for bit.
+  Each sharded triple (over three CPU slabs) equals the port's dense
+  triple of the same method and hierarchy, itself held to the reference
+  (the reference's sharded backend does not run under this jax).
 * Fixtures: on all 24 ``tests/golden/*.json`` every exact triple gives the
   fixture's core and partitions; every approx triple stays within the
   approximation bound of the fixture's core.
@@ -25,6 +28,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 from repro.core.api import Decomposition as JDecomposition
@@ -38,6 +42,11 @@ from repro_torch.core import (build_problem, canonicalize_labels,
                               exact_coreness, approx_coreness)
 from repro_torch.core.peel import _gather_incident_sids
 from repro_torch.graph.generators import community_power_law, golden_suite
+from repro_torch.launch.mesh import Mesh
+
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.fast
 
@@ -48,7 +57,9 @@ GRAPHS = sorted(golden_suite())
 HEAVY = ("er20", "planted40")
 PARITY_CELLS = [(g, 2, 3) for g in GRAPHS if g not in HEAVY] + \
     [("fig1", 1, 2), ("fig1", 3, 4)]
-LOCAL = [t for t in NucleusConfig.legal_combinations() if t[1] != "sharded"]
+LOCAL = NucleusConfig.legal_combinations()
+# the sharded triples' mesh: three slabs, so every cell splits its rows
+SHARDED_MESH = Mesh(("cpu",) * 3)
 JSON_TRIPLES = [("exact", "dense", "fused"), ("exact", "gather", "replay"),
                 ("exact", "nh", "two_phase")]
 _CACHE = {}
@@ -72,13 +83,21 @@ def _cell(gname, r, s):
 
 
 def _pair(gname, r, s, triple):
+    """(port decomposition, what it is held to): the reference's
+    decompose, or for a sharded triple the port's dense one."""
     pp, jp, decs, _ = _cell(gname, r, s)
     if triple not in decs:
         m, b, h = triple
-        got = decompose(pp, NucleusConfig(r=r, s=s, method=m, backend=b,
-                                          hierarchy=h), device="cpu")
-        want = jcore.decompose(jp, jcore.NucleusConfig(
-            r=r, s=s, method=m, backend=b, hierarchy=h))
+        if b == "sharded":
+            got = decompose(pp, NucleusConfig(
+                r=r, s=s, method=m, backend=b, hierarchy=h,
+                mesh=SHARDED_MESH), device="cpu")
+            want = _pair(gname, r, s, (m, "dense", h))[0]
+        else:
+            got = decompose(pp, NucleusConfig(r=r, s=s, method=m, backend=b,
+                                              hierarchy=h), device="cpu")
+            want = jcore.decompose(jp, jcore.NucleusConfig(
+                r=r, s=s, method=m, backend=b, hierarchy=h))
         decs[triple] = (got, want)
     return decs[triple]
 
@@ -104,27 +123,38 @@ def _opt(x):
 
 
 def check_cell(gname, r, s):
-    """Every local triple of the port == the reference's decompose."""
+    """Every local triple of the port == the reference's decompose; every
+    sharded triple == the port's dense one."""
     pp = _cell(gname, r, s)[0]
     if pp.n_r == 0:
         pytest.skip("no r-cliques")
-    assert len(LOCAL) == 21
-    for triple in sorted(LOCAL, key=lambda t: t[1] != "nh"):
+    assert len(LOCAL) == 29
+    for triple in sorted(LOCAL, key=lambda t: (t[1] == "sharded",
+                                               t[1] != "nh")):
         label = "/".join(triple)
+        sharded = triple[1] == "sharded"
         got, want = _pair(gname, r, s, triple)
         assert got.rounds == want.rounds, label
         assert type(got.rounds) is int
-        for f in ("core", "order_round", "peel_value", "uf_parent", "uf_L"):
+        fields = ("core", "order_round", "peel_value", "uf_parent", "uf_L")
+        if sharded:
+            # no trace; an unfused peel_value is the clipped core, as the
+            # reference's sharded backend returns it
+            assert got.order_round is None, label
+            fields = ("core", "uf_parent", "uf_L") + (
+                ("peel_value",) if triple[2] == "fused" else ())
+        for f in fields:
             a, b = _opt(getattr(got, f)), _opt(getattr(want, f))
             assert (a is None) == (b is None), f"{label}: {f}"
             if a is not None:
                 np.testing.assert_array_equal(a, b, err_msg=f"{label}: {f}")
-        assert got.plan.reasons == want.plan.reasons, label
+        if not sharded:
+            assert got.plan.reasons == want.plan.reasons, label
         if triple[2] == "none":
             with pytest.raises(ValueError, match="hierarchy='none'"):
                 got.tree
             continue
-        tree = _ref_tree(gname, r, s, want)
+        tree = want.tree if sharded else _ref_tree(gname, r, s, want)
         np.testing.assert_array_equal(got.tree.parent, tree.parent,
                                       err_msg=f"{label}: tree parent")
         np.testing.assert_array_equal(got.tree.level, tree.level,
@@ -166,8 +196,10 @@ def test_every_local_triple_reproduces_golden_fixture(fname):
     core = np.asarray(fx["core"])
     deg0 = problem.deg0.numpy()
     for (m, b, h) in LOCAL:
+        mesh = SHARDED_MESH if b == "sharded" else None
         dec = decompose(problem, NucleusConfig(r=r, s=s, method=m,
-                                               backend=b, hierarchy=h),
+                                               backend=b, hierarchy=h,
+                                               mesh=mesh),
                         device="cpu")
         label = f"{fname} {m}/{b}/{h}"
         if m == "approx":

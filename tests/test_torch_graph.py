@@ -29,6 +29,10 @@ from repro_torch.graph import (csr_from_pairs, expand_levels, lexsort_rows,
 from repro_torch.graph import orientation as torient
 from repro_torch.graph.generators import golden_suite
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 

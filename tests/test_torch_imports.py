@@ -10,6 +10,11 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.fast
 
@@ -48,7 +53,9 @@ def test_port_sources_found():
                 "kernels/flash_attention.py", "core/session.py",
                 "core/streaming.py", "serve/__init__.py", "serve/router.py",
                 "serve/frontend.py", "serve/status.py", "serve/cache.py",
-                "serve/httpd.py"):
+                "serve/httpd.py", "core/distributed.py", "launch/mesh.py",
+                "configs/nucleus.py", "distbuild/builder.py",
+                "distbuild/exchange.py", "distbuild/planner.py"):
         assert mod in rel, mod
 
 
@@ -108,7 +115,10 @@ def test_import_leaves_jax_unloaded():
             "generators, repro_torch.kernels.flash_attention, "
             "repro_torch.models, repro_torch.configs, repro_torch.launch, "
             "repro_torch.launch.serve, repro_torch.core.session, "
-            "repro_torch.core.streaming, repro_torch.serve; bad = [m for m in sys.modules if "
+            "repro_torch.core.streaming, repro_torch.serve, "
+            "repro_torch.core.distributed, repro_torch.launch.mesh, "
+            "repro_torch.configs.nucleus, repro_torch.distbuild; "
+            "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

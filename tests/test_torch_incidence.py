@@ -26,6 +26,10 @@ from repro_torch.core.incidence import (build_problem, pick_rank,
 from repro_torch.graph import orient, orientation as torient
 from repro_torch.graph.generators import GOLDEN_RS, golden_suite
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 FIELDS = ("r_cliques", "inc_rid", "mem_offsets", "mem_sids", "deg0")

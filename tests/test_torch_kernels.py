@@ -28,6 +28,10 @@ from repro_torch.kernels.peel_round import (PEELED, fused_peel_round,
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.kernels.tricount import tricount_oriented, tricount_per_edge
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 

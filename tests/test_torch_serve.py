@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import repro.core.incidence as jincidence
+import repro.graph.generators as jgenerators
 import repro.serve as jserve
 from repro.core.incidence import NucleusProblem as JProblem
 from repro.graph.container import Graph as JGraph
@@ -42,6 +43,10 @@ from repro_torch.serve import (AdmissionError, Frontend, NucleusHTTPServer,
                                load_manifest, padded_plan_bytes, pool_key,
                                prewarm_router, router_manifest,
                                save_manifest, status_report, validate_status)
+
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.fast
 
@@ -489,9 +494,17 @@ def test_httpd_typed_rejections(reject):
 
 def test_warm_pool_counts_match_the_reference(monkeypatch):
     """``serve_nucleus_warm_pool()`` at its defaults: the same graphs,
-    pools, warm hits and buckets as the reference's (whose incidence build
-    is fed the port's arrays: its eager jnp build compiles per op)."""
+    pools, warm hits and buckets as the reference's (whose graph
+    canonicalization and incidence build are fed the port's arrays: its
+    jnp ``make_graph`` and eager build compile per op and shape;
+    tests/test_torch_graph.py holds the port's ``make_graph`` to it)."""
     got = launch.serve_nucleus_warm_pool(quiet=True, device="cpu")
+
+    def make_graph_from_port(n, edges):
+        pg = make_graph(n, np.asarray(edges), device="cpu")
+        return JGraph(n=n, edges=jnp.asarray(pg.edges.numpy()))
+
+    monkeypatch.setattr(jgenerators, "make_graph", make_graph_from_port)
 
     def build_from_port(g, r, s, **kw):
         p = build_problem(make_graph(g.n, np.asarray(g.edges),

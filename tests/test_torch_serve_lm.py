@@ -20,6 +20,10 @@ from repro_torch.kernels import launch_counts
 from repro_torch.launch import serve, steps
 from repro_torch.models import transformer as T
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 
 def converted(arch, init=JT.init_params):
     jc = j_get_arch(arch).make_smoke_config()

@@ -31,6 +31,10 @@ from repro_torch.core.session import bucket_size, canonical_schedule
 from repro_torch.graph.container import make_graph
 from repro_torch.graph.generators import golden_suite, planted_cliques
 
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.fast
 
 GRAPHS = golden_suite()
@@ -343,10 +347,16 @@ def test_session_update_streams_like_the_reference():
 
 def test_session_needs_a_card_and_refuses_sharded(monkeypatch):
     """device=None means the card: without one Session raises and names
-    device="cpu"; sharded pools raise the port's "not yet ported"."""
+    device="cpu"; a sharded pool runs on the CPU (``make_host_mesh``'s
+    one CPU slab) and gives the dense decompose's arrays."""
     sharded = Session(NucleusConfig(backend="sharded"), device="cpu")
-    with pytest.raises(Exception, match="not yet ported"):
-        sharded.decompose(GRAPHS["k4"](device="cpu"))
+    g = GRAPHS["k4"](device="cpu")
+    got = sharded.decompose(g)
+    want = decompose(g, NucleusConfig(), device="cpu")
+    for f in ("core", "uf_parent", "uf_L"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.peel_stats["slabs"] == 1
+    assert [k[8] for k in sharded.stats["buckets"]] == [1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Session(NucleusConfig())

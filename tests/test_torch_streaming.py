@@ -14,6 +14,7 @@ reference's and against a fresh ``decompose``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 from repro.core.incidence import NucleusProblem as JProblem
@@ -24,6 +25,10 @@ from repro_torch.core.incidence import build_problem
 from repro_torch.core.streaming import SUPPORTED_RS
 from repro_torch.graph.container import make_graph
 from repro_torch.graph.generators import golden_suite
+
+# one intra-op thread: the suite runs its workers on shared cores, and
+# idle OpenMP threads spin against the other workers' tests
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.fast
 
