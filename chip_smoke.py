@@ -8,9 +8,10 @@ triangles, then the memory-bounded chunked build on the card: its dense
 the million-vertex graph, then LM inference of minicpm-2b at full width
 (random seeded weights): a 32,768-token prefill through the flash-attention
 kernel and a decode server, then the nucleus server (a warm Session,
-exact updates, a multi-tenant router and its HTTP surface), and last the
+exact updates, a multi-tenant router and its HTTP surface), the
 sharded lane (the sharded build, the peel over a mesh of slabs, its exact
-compressed reduction and a sharded pool).  Every kernel
+compressed reduction and a sharded pool), and last MoE and MLA inference
+of moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width.  Every kernel
 of those paths is checked against its plain-torch version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
@@ -91,7 +92,17 @@ Phases (any failure ends the run with a non-zero exit):
      approx run); a ``Router`` pool of two POOL_N graphs on the sharded
      backend (one warm hit, a "sharded" bucket of 4 shards, each artifact
      equal to ``decompose``); the segment sum timed at one slab's plan;
- 11. a JSON line of per-kernel numbers, the card's name and power limit,
+ 11. MoE and MLA inference of moonshot-v1-16b-a3b and deepseek-v2-lite-16b
+     at their published widths (random seeded weights), one model on the
+     card at a time: ``lm_prefill_step`` at B = 1, S = 32,768 (flash
+     launches = layers, the next token equal in two runs, the capacity
+     drops counted over the layers), ``serve_lm`` at full width (no flash
+     launch), ``forward`` card == CPU at full width with 2 layers in f32
+     with equal top-k expert choices at every token and layer, and the
+     smoke configs' ``serve_lm`` on card and CPU (equal greedy tokens);
+     flash attention's, SDPA's and the bound's times at their prefill
+     shape (1, 16, 32768, 128) and at stablelm-12b's (1, 32, 8, 4096, 160);
+ 12. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -159,6 +170,11 @@ FLASH_CASES = (
 )
 # minitron-4b's attention (GQA, D = 128), timed beside the prefill shape
 FLASH_D128 = (1, 24, 8, 4096, 128)
+# phase 11: the MoE/MLA archs, one on the card at a time, and the flash
+# kernel at their prefill shape and at stablelm-12b's head dim 160
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-lite-16b")
+FLASH_MOE = (1, 16, 16, PREFILL_S, 128)
+FLASH_D160 = (1, 32, 8, 4096, 160)
 # flash attention's bar: the largest ||got - want|| / ||want|| over output
 # rows (a row is one query's D values).  bf16: the output's rounding is
 # relative (half an ulp, 2^-9), so a bar relative to each row holds at every
@@ -873,12 +889,16 @@ def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def plain_causal_rows(q, k, v, rows: int = PLAIN_ROWS) -> torch.Tensor:
-    """The plain twin's causal output for Sq == Sk and H == Hkv, query rows
-    [i0, i1) at a time against keys [0, i1): ``ref.attention_ref``'s f32
-    scores, -inf mask by index, softmax and cast, with rows * i1 scores per
-    slice instead of S * S (155 GB in f32 at minicpm-2b's 36 heads and
+    """The plain twin's causal output for Sq == Sk, query rows [i0, i1) at
+    a time against keys [0, i1): ``flash_attention_plain``'s KV heads
+    repeated for their query heads, ``ref.attention_ref``'s f32 scores,
+    -inf mask by index, softmax and cast, with rows * i1 scores per slice
+    instead of S * S (155 GB in f32 at minicpm-2b's 36 heads and
     S = 32,768)."""
     S, D = q.shape[2], q.shape[3]
+    G = q.shape[1] // k.shape[1]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     out = torch.empty_like(q)
     for i0 in range(0, S, rows):
         i1 = min(i0 + rows, S)
@@ -895,7 +915,7 @@ def plain_causal_rows(q, k, v, rows: int = PLAIN_ROWS) -> torch.Tensor:
     return out
 
 
-def check_flash(got, want, ctl, dt, what: str):
+def check_flash(got, want, ctl, dt, what: str, tag: str = "lm"):
     """Requires got within FLASH_ROW_TOL of want and the control (the kernel
     with q * CONTROL_SCALE) outside it; returns (max abs err, row err,
     control's row err)."""
@@ -906,10 +926,58 @@ def check_flash(got, want, ctl, dt, what: str):
             f"{what}: row rel err {r} > {tol} (max abs err {e})")
     require(c > tol, f"the bar does not reject the scale-x{CONTROL_SCALE} "
             f"control at {what}: row rel err {c} <= {tol}")
-    log(f"[lm] flash_attention {what}: row rel err {r:.3g}, max abs err "
+    log(f"[{tag}] flash_attention {what}: row rel err {r:.3g}, max abs err "
         f"{e:.3g} (bar: row rel {tol}); control scale x{CONTROL_SCALE}: "
         f"row rel err {c:.3g}")
     return e, r, c
+
+
+def flash_row(gen, B, H, Hkv, S, D, iters: int, tag: str,
+              hold_sdpa: bool = False):
+    """flash_attention at (B, H, Hkv, S, D) bf16 causal, on inputs laid out
+    as the models hand them over: held to its plain twin (in query-row
+    slices) with the scale control, then the kernel's, SDPA's and the
+    twin's ms on the same inputs beside the bound: 4·D·H·S(S+1)/2 flops at
+    the bf16 rate, or q, k, v and the output once at the memory rate,
+    whichever is larger.  hold_sdpa: SDPA's output must lie within the bar
+    of the kernel's too."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = H != Hkv
+    shape = f"({B}, {H}, {Hkv}, {S}, {D}) bf16 causal"
+    q, k, v = flash_inputs(gen, B, H, Hkv, S, S, D, torch.bfloat16)
+    got = flash_attention(q, k, v, True)
+    ctl = flash_attention(q * CONTROL_SCALE, k, v, True)
+    want = plain_causal_rows(q, k, v)
+    e, r, _ = check_flash(got, want, ctl, torch.bfloat16,
+                          f"{shape} (twin in {PLAIN_ROWS}-row slices)", tag)
+    del ctl
+    lib = sdpa(q, k, v, is_causal=True, enable_gqa=gqa)
+    lib_err, lib_want = row_rel_err(got, lib), row_rel_err(lib, want)
+    # two bf16 outputs of one function, each within ~2^-9 of the f32 value
+    require(not hold_sdpa or lib_err <= FLASH_ROW_TOL[torch.bfloat16],
+            f"flash_attention differs from SDPA at {shape}: row rel err "
+            f"{lib_err}")
+    del got, want, lib
+    torch.cuda.empty_cache()
+    row = {"shape": shape, "max_abs_err": e, "max_row_rel_err": r,
+           "ms": cuda_ms(lambda: flash_attention(q, k, v, True), iters),
+           "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                              enable_gqa=gqa), iters),
+           "plain_ms": cuda_ms(lambda: plain_causal_rows(q, k, v), 2, 1)}
+    del q, k, v
+    torch.cuda.empty_cache()
+    ops_ms = 1e3 * 4.0 * D * H * B * S * (S + 1) / 2 / BF16_FLOPS_PER_S
+    bytes_ms = 1e3 * 2.0 * B * S * D * 2 * (H + Hkv) / HBM_BYTES_PER_S
+    row["bound_ms"] = max(ops_ms, bytes_ms)
+    row["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    log(f"[{tag}] flash_attention {shape}: kernel {row['ms']:.4f} ms, "
+        f"plain (sliced) {row['plain_ms']:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms (row rel err kernel vs SDPA "
+        f"{lib_err:.3g}, SDPA vs plain {lib_want:.3g}), bound "
+        f"{row['bound_ms']:.4f} ms (operations {ops_ms:.4f}, bytes "
+        f"{bytes_ms:.4f})")
+    return row
 
 
 def to_device(tree, dev):
@@ -918,11 +986,10 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def profile_decode(params, cfg, steps: int = 8) -> None:
+def profile_decode(params, cfg, steps: int = 8, tag: str = "lm"):
     """Where a full-width decode step's time goes: `steps` warm steps of
     4 slots timed on the host clock (each ending in a sync), then one step
     traced: its device time, kernel launches and the busy share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import lm_decode_step
     from repro_torch.models import transformer as T
@@ -940,18 +1007,59 @@ def profile_decode(params, cfg, steps: int = 8) -> None:
         lm_decode_step(params, tok, cache, n, cfg)
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    events = device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     n_kernels = sum(e.count for e in events)
     wall_ms = 1e3 * float(np.median(walls[1:]))
-    log(f"[lm] decode step, full width, 4 slots: wall {wall_ms:.3f} ms "
+    log(f"[{tag}] decode step, full width, 4 slots: wall {wall_ms:.3f} ms "
         f"(median of {steps - 1} warm steps; first {1e3 * walls[0]:.1f} "
         f"ms), traced device time {busy_ms:.3f} ms in {n_kernels} kernels"
         f" = {100 * busy_ms / wall_ms:.1f}% busy")
+    top_kernels(events, busy_ms, tag, "decode step")
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": n_kernels}
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_events(prof):
+    """The trace's kernels with device time, summed by name."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+
+def top_kernels(events, total_ms: float, tag: str, what: str,
+                n: int = 6) -> None:
+    """Logs the n kernels of largest summed device time, with shares."""
+    for e in sorted(events, key=dev_us, reverse=True)[:n]:
+        ms = dev_us(e) / 1e3
+        log(f"[{tag}]   {what}: {ms:9.3f} ms {100 * ms / total_ms:5.1f}% "
+            f"x{e.count} {e.key[:90]}")
+
+
+def profile_prefill(params, cfg, toks, tag: str):
+    """One traced ``lm_prefill_step``: its device time beside its wall time,
+    and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import lm_prefill_step
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lm_prefill_step(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t)
+    events = device_events(prof)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    flash_ms = sum(dev_us(e) for e in events if "flash" in e.key) / 1e3
+    log(f"[{tag}] prefill traced: device time {busy_ms:.1f} ms in "
+        f"{sum(e.count for e in events)} kernels over a {wall_ms:.1f} ms "
+        f"wall (traced); flash attention {flash_ms:.1f} ms "
+        f"({100 * flash_ms / busy_ms:.1f}%)")
+    top_kernels(events, busy_ms, tag, "prefill")
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "flash_ms": flash_ms}
 
 
 def phase_lm(seed: int):
@@ -982,54 +1090,13 @@ def phase_lm(seed: int):
 
     # the prefill's shape: the kernel vs the twin in query-row slices, then
     # the kernel's, the twin's and SDPA's times on the same inputs
-    H, D, S = 36, 64, PREFILL_S
-    q, k, v = flash_inputs(gen, 1, H, H, S, S, D, torch.bfloat16)
-    got = flash_attention(q, k, v, True)
-    ctl = flash_attention(q * CONTROL_SCALE, k, v, True)
-    want = plain_causal_rows(q, k, v)
-    e, r, _ = check_flash(got, want, ctl, torch.bfloat16,
-                          f"(1, {H}, {S}, {D}) bf16 causal (twin in "
-                          f"{PLAIN_ROWS}-row slices)")
-    err, row_err = max(err, e), max(row_err, r)
-    del ctl
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(q, k, v, is_causal=True)
-    lib_err, lib_want = row_rel_err(got, lib), row_rel_err(lib, want)
-    # two bf16 outputs of one function, each within ~2^-9 of the f32 value
-    require(lib_err <= FLASH_ROW_TOL[torch.bfloat16],
-            f"flash_attention differs from SDPA at the prefill shape: row "
-            f"rel err {lib_err}")
-    del got, want, lib
-    torch.cuda.empty_cache()
-    fa_ms = cuda_ms(lambda: flash_attention(q, k, v, True), 10)
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 10)
-    plain_ms = cuda_ms(lambda: plain_causal_rows(q, k, v), 2, 1)
-    del q, k, v
-    torch.cuda.empty_cache()
-    ops_ms = 1e3 * 4.0 * D * H * S * (S + 1) / 2 / BF16_FLOPS_PER_S
-    bytes_ms = 1e3 * 4.0 * S * H * D * 2 / HBM_BYTES_PER_S
-    log(f"[lm] flash_attention (1, {H}, {S}, {D}) bf16 causal: kernel "
-        f"{fa_ms:.4f} ms, plain (sliced) {plain_ms:.4f} ms, SDPA "
-        f"{lib_ms:.4f} ms (row rel err kernel vs SDPA {lib_err:.3g}, SDPA "
-        f"vs plain {lib_want:.3g}), bound {max(ops_ms, bytes_ms):.4f} ms "
-        f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    pre = flash_row(gen, 1, 36, 36, PREFILL_S, 64, iters=10, tag="lm",
+                    hold_sdpa=True)
+    err, row_err = max(err, pre["max_abs_err"]), max(row_err,
+                                                     pre["max_row_rel_err"])
 
-    # minitron-4b's attention (GQA, D = 128: the two-warpgroup variant),
-    # held to its twin in FLASH_CASES; here its times beside SDPA's
-    B, H2, Hkv2, S2, D2 = FLASH_D128
-    q, k, v = flash_inputs(gen, B, H2, Hkv2, S2, S2, D2, torch.bfloat16)
-    d128 = {"shape": f"{FLASH_D128[:3] + (S2, D2)} bf16 causal",
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, True), 20),
-            "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                               enable_gqa=True), 20)}
-    d128_ops = 1e3 * 4.0 * D2 * H2 * S2 * (S2 + 1) / 2 / BF16_FLOPS_PER_S
-    d128_bytes = 1e3 * 2.0 * S2 * D2 * 2 * (H2 + Hkv2) / HBM_BYTES_PER_S
-    d128["bound_ms"] = max(d128_ops, d128_bytes)
-    d128["bound_by"] = "operations" if d128_ops >= d128_bytes else "bytes"
-    del q, k, v
-    log(f"[lm] flash_attention {d128['shape']}: kernel {d128['ms']:.4f} ms, "
-        f"SDPA {d128['library_ms']:.4f} ms, bound {d128['bound_ms']:.4f} ms "
-        f"(operations {d128_ops:.4f}, bytes {d128_bytes:.4f})")
+    # minitron-4b's attention (GQA, D = 128: the two-warpgroup variant)
+    d128 = flash_row(gen, *FLASH_D128, iters=20, tag="lm")
 
     # the main path: lm_prefill_step at full width, B = 1, S = 32,768
     cfg = get_arch(LM_ARCH).make_config()
@@ -1131,18 +1198,237 @@ def phase_lm(seed: int):
             "launches": prefill_counts["flash_attention"],
             "max_abs_err": err, "max_row_rel_err": row_err,
             "tolerance": "row rel L2 1e-2 bf16, 1e-4 f32",
-            "ms": fa_ms, "plain_ms": plain_ms,
+            "ms": pre["ms"], "plain_ms": pre["plain_ms"],
             "plain_call": f"attention_ref in {PLAIN_ROWS}-query-row slices",
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms,
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "library_ms": pre["library_ms"],
             "library_call": "scaled_dot_product_attention(is_causal=True)",
-            "shape": f"(1, {H}, {PREFILL_S}, {D}) bf16 causal",
+            "shape": pre["shape"],
             "routes": "bf16 D=64: wgmma/TMA, 3 consumer warpgroups; bf16 "
                       "D=128: wgmma/TMA, 2; bf16 D=160 and f32: the first "
                       "design (mma.sync m16n8k16 / FMA)",
             "d128": d128,
             "path": f"lm_prefill_step({LM_ARCH}, B=1, S={PREFILL_S})"}
+
+
+class MoERecorder:
+    """Wraps ``transformer.moe_block`` while open: per call, the routing
+    the call takes (the first K of one stable descending sort of the
+    router probabilities, as ``moe_route`` takes them), its capacity drops
+    (``moe_slots``) and the gap between the K-th and (K+1)-th probability
+    of each token, kept on the host.  The wrapped block computes as
+    before."""
+
+    def __init__(self, T):
+        self.T, self.choices, self.gaps, self.dropped = T, [], [], []
+
+    def __enter__(self):
+        T, block = self.T, self.T.moe_block
+
+        def recorded(x, params, cfg):
+            K = cfg.top_k
+            probs = torch.softmax(x.float() @ params["router"].float(), -1)
+            top, order = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+            _, keep = T.moe_slots(order[:, :K], cfg.n_experts,
+                                  T.moe_capacity(x.shape[0], cfg))
+            self.choices.append(order[:, :K].cpu())
+            self.gaps.append((top[:, K - 1] - top[:, K]).cpu())
+            self.dropped.append(int((~keep).sum()))
+            return block(x, params, cfg)
+        self.block, T.moe_block = block, recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.T.moe_block = self.block
+
+
+class FirstAttentionCheck:
+    """Wraps ``kernels.ops.attention`` while open: its first call's output,
+    as the model hands it q, k and v (MLA's concatenated rope and nope
+    parts included), is held to the plain twin in query-row slices, with
+    the scale control; later calls pass through."""
+
+    def __init__(self, ops, tag: str):
+        self.ops, self.tag, self.err = ops, tag, None
+
+    def __enter__(self):
+        attention = self.ops.attention
+
+        def checked(q, k, v, causal=True, **kw):
+            out = attention(q, k, v, causal=causal, **kw)
+            if self.err is None:
+                ctl = attention(q * CONTROL_SCALE, k, v, causal=causal, **kw)
+                want = plain_causal_rows(q, k, v)
+                self.err = check_flash(
+                    out, want, ctl, q.dtype, f"{tuple(q.shape)} layer 0 of "
+                    f"the prefill (q strides {q.stride()}, k strides "
+                    f"{k.stride()})", self.tag)[:2]
+                del ctl, want
+            return out
+        self.attention, self.ops.attention = attention, checked
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attention = self.attention
+
+
+def phase_moe(seed: int):
+    """Phase 11: MoE and MLA inference of moonshot-v1-16b-a3b and
+    deepseek-v2-lite-16b, one model on the card at a time: (a)
+    ``lm_prefill_step`` at full width, B = 1, S = 32,768 (flash launches
+    = layers, the next token equal in two runs, capacity drops counted in
+    a third, recorded run); (b) ``serve_lm`` at full width (no flash
+    launch); (c) ``forward`` card == CPU at full width with 2 layers in
+    f32 with equal expert choices; (d) the smoke configs' ``serve_lm`` on
+    card and CPU.  Then flash attention at these archs' prefill shape and
+    at stablelm-12b's D = 160, beside SDPA and the bound."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import lm_prefill_step
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for arch in MOE_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch).make_config()
+        t = time.perf_counter()
+        params = T.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        toks = torch.randint(0, cfg.vocab, (1, PREFILL_S), generator=gen,
+                             device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        runs, nxts, launches = [], [], []
+        for _ in range(2):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            nxts.append(lm_prefill_step(params, {"tokens": toks}, cfg))
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+            launches.append(launch_counts["flash_attention"])
+            require(launches[-1] == cfg.n_layers,
+                    f"{arch} prefill launched flash attention "
+                    f"{launches[-1]} times, not n_layers={cfg.n_layers}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(torch.equal(nxts[0], nxts[1]),
+                f"{arch}: the prefill's next token differs between two runs")
+        # a third, uncounted run: the capacity drops, and the first layer's
+        # attention held to the twin on the path's own q, k, v
+        with MoERecorder(T) as rec, FirstAttentionCheck(T.ops, "moe") as fa:
+            rec_nxt = lm_prefill_step(params, {"tokens": toks}, cfg)
+        require(torch.equal(rec_nxt, nxts[0]) and len(rec.dropped) ==
+                cfg.n_layers, f"{arch}: the recorded prefill differs")
+        cap = T.moe_capacity(PREFILL_S, cfg.moe)
+        row = {"params": cfg.param_count(), "init_s": init_s,
+               "prefill_s": runs, "peak_gb": peak_gb,
+               "next_token": int(nxts[0]),
+               "flash_launches": launches, "cap": cap,
+               "layer0_max_abs_err": fa.err[0],
+               "layer0_max_row_rel_err": fa.err[1],
+               "dropped": sum(rec.dropped),
+               "assignments": cfg.n_layers * PREFILL_S * cfg.moe.top_k}
+        log(f"[moe] {arch} prefill B=1 S={PREFILL_S}: {row['params']} "
+            f"params (bf16, init {init_s:.2f} s), prefill {runs[0]:.3f} s "
+            f"(again {runs[1]:.3f} s), peak {peak_gb:.2f} GB, next token "
+            f"{row['next_token']} in both runs, flash launches {launches} "
+            f"(layers {cfg.n_layers}); capacity {cap} slots an expert, "
+            f"{row['dropped']} of {row['assignments']} assignments dropped "
+            f"over the layers")
+        row["prefill_profile"] = profile_prefill(params, cfg, toks, "moe")
+        del rec, toks
+
+        # (b) full-width serving: decode runs the online scan
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        served = serve_lm(arch, n_requests=8, batch_slots=4, smoke=False,
+                          params=params, device="cuda")
+        serve_s = time.perf_counter() - t
+        require(launch_counts["flash_attention"] == 0,
+                f"{arch}: flash attention launched during decode")
+        require(sorted(served) == list(range(8)) and all(
+            x.shape == (24,) and ((x >= 0) & (x < cfg.vocab)).all()
+            for x in served.values()),
+            f"{arch}: full-width serving output malformed")
+        row["serve_s"] = serve_s
+        row["serve_tok_s"] = 8 * 24 / serve_s
+        log(f"[moe] serve_lm({arch!r}, 8 requests x 24 tokens, 4 slots, "
+            f"full width): {serve_s:.2f} s = {row['serve_tok_s']:.1f} tok/s"
+            f", 0 flash launches")
+        row["decode_profile"] = profile_decode(params, cfg, tag="moe")
+        del params
+        torch.cuda.empty_cache()
+
+        # (c) card vs CPU: full width, 2 layers, f32, TF32 off
+        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+        t = time.perf_counter()
+        cpu_params = T.init_params(cfg2, generator=torch.Generator()
+                                   .manual_seed(seed), device="cpu")
+        toks = torch.randint(0, cfg2.vocab, (1, CPU_CHECK_S),
+                             generator=torch.Generator().manual_seed(seed))
+        with MoERecorder(T) as want_rec:
+            want = T.forward(cpu_params, toks, cfg2)
+        cpu_s = time.perf_counter() - t
+        reset_launch_counts()
+        with MoERecorder(T) as got_rec:
+            got = T.forward(to_device(cpu_params, "cuda"), toks.cuda(),
+                            cfg2).cpu()
+        require(launch_counts["flash_attention"] == cfg2.n_layers,
+                f"{arch}: the card's forward did not run the kernel once "
+                f"per layer")
+        for layer, (a, b, gap) in enumerate(zip(
+                got_rec.choices, want_rec.choices, want_rec.gaps)):
+            diff = (a != b).any(dim=1)
+            if bool(diff.any()):
+                log(f"[moe] {arch} layer {layer}: expert choices differ at "
+                    f"tokens {diff.nonzero().flatten().tolist()}, K-th vs "
+                    f"(K+1)-th probability gap there "
+                    f"{gap[diff].tolist()}")
+            require(not bool(diff.any()),
+                    f"{arch}: top-k expert choices differ between card and "
+                    f"CPU at layer {layer}")
+        e = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
+                f"{arch}: card forward differs from CPU forward: max abs "
+                f"err {e}")
+        min_gap = min(float(g.min()) for g in want_rec.gaps)
+        row.update(cpu_check_max_abs_err=e, cpu_check_min_gap=min_gap)
+        log(f"[moe] forward {arch} full width, 2 layers, f32, S="
+            f"{CPU_CHECK_S}: card == CPU (max abs err {e:.3g}, rtol/atol "
+            f"1e-3), expert choices equal at every token and layer "
+            f"(smallest K-th/(K+1)-th probability gap {min_gap:.3g}); CPU "
+            f"init + forward {cpu_s:.2f} s")
+        del cpu_params, got, want, want_rec, got_rec
+
+        # (d) the smoke config's serving, card vs CPU, same weights
+        scfg = get_arch(arch).make_smoke_config()
+        sp = T.init_params(scfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        reset_launch_counts()
+        on_card = serve_lm(arch, params=to_device(sp, "cuda"),
+                           device="cuda", quiet=True)
+        on_cpu = serve_lm(arch, params=sp, device="cpu", quiet=True)
+        require(launch_counts["flash_attention"] == 0,
+                f"{arch}: flash attention launched during smoke decode")
+        require(sorted(on_card) == sorted(on_cpu) and all(
+            np.array_equal(on_card[r], on_cpu[r]) for r in on_cpu),
+            f"serve_lm({arch!r}) smoke: card tokens differ from the CPU's")
+        log(f"[moe] serve_lm({arch!r}) smoke: {len(on_cpu)} requests, equal "
+            f"greedy tokens on card and CPU")
+        out[arch] = row
+        torch.cuda.empty_cache()
+
+    # the flash kernel at these archs' prefill shape (head_dim 2048/16 =
+    # 128, Hkv = H = 16) and at stablelm-12b's D = 160 (mma.sync route)
+    timing = {"moe_mla_prefill": flash_row(gen, *FLASH_MOE, iters=10,
+                                           tag="moe", hold_sdpa=True),
+              "d160": flash_row(gen, *FLASH_D160, iters=20, tag="moe")}
+    return out, timing
 
 
 def smoke_delta(g, seed: int):
@@ -1888,7 +2174,20 @@ def main() -> int:
     del phase3
     phase_t = log_phase(10, phase_t)
 
-    # -- phase 11: the result lines -----------------------------------------
+    # -- phase 11: MoE and MLA inference ------------------------------------
+    moe, timing = phase_moe(args.seed)
+    rows[3]["moe_mla"] = {a: {"launches": r["flash_launches"][0],
+                              "prefill_s": r["prefill_s"]}
+                          for a, r in moe.items()}
+    rows[3].update(timing)
+    # the kernel's errors over every shape it was held to its twin at
+    for f in ("max_abs_err", "max_row_rel_err"):
+        rows[3][f] = max([rows[3][f], rows[3]["d128"][f]] +
+                         [x[f] for x in timing.values()] +
+                         [r["layer0_" + f] for r in moe.values()])
+    phase_t = log_phase(11, phase_t)
+
+    # -- phase 12: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

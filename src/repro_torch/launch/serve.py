@@ -1,9 +1,11 @@
 """Serving driver: LM decode and nucleus queries (counterpart of
 ``repro.launch.serve``).
 
-``python -m repro_torch.launch.serve --arch minicpm-2b`` prefills waves of
-prompts and decodes tokens with the KV cache, on the card by default
-(``--device cpu`` runs the plain path).  Requests are served in waves of
+``python -m repro_torch.launch.serve --arch minicpm-2b`` (or any of the
+reference's five LM archs, the MoE moonshot-v1-16b-a3b and the MoE + MLA
+deepseek-v2-lite-16b among them) prefills waves of prompts and decodes
+tokens with the KV cache, on the card by default (``--device cpu`` runs the
+plain path).  Requests are served in waves of
 ``batch_slots``: the slots of a wave share one cache length, each wave
 prefills by one-token decode steps over its prompts and then decodes
 ``gen_len - 1`` more tokens, exactly as the reference's loop does.
@@ -58,7 +60,8 @@ def serve_lm(arch_id: str, n_requests: int = 16, batch_slots: int = 4,
     """
     if arch_id in NOT_PORTED:
         raise NotImplementedError(f"--arch {arch_id} is not yet ported to "
-                                  f"repro_torch; it serves the dense LM "
+                                  f"repro_torch (nor are training and the "
+                                  f"GNN archs); it serves the five LM "
                                   f"archs and --arch nucleus")
     if arch_id == "nucleus":
         raise ValueError("--arch nucleus is no LM: serve it with "

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense GQA/MHA path (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer: GQA/MHA or MLA attention, SwiGLU or MoE FFN
+(counterpart of ``repro.models.transformer``).
 
 Plain functions on a parameter dict with the reference's names and layout:
 every per-layer array is stacked on a leading ``n_layers`` axis, so the
@@ -18,13 +18,17 @@ Attention has two routes, as in the reference's own test
   the torch counterpart of the reference's jnp scan, with its position
   offsets and ``k_valid_len`` mask.
 
-Not yet ported: the MoE FFN (``moe_block``), MLA attention and
-``loss_fn``; a config with ``moe`` or ``mla`` set builds (so its parameter
-counts can be read) but the model functions raise ``NotImplementedError``
-naming the part.  ``dtype`` is a torch dtype.  The reference's sharding and
-cost hints (``cost_unroll``, ``moe_ep_data``, ``act_specs``) and ``remat``
-(recompute in the backward pass) are dropped: the port runs on one device
-and serves without a backward pass.
+MLA (DeepSeek-V2) caches the compressed latent and the shared rope key and
+rebuilds K/V from them, over the whole cache at each decode step, as the
+reference does.  The MoE FFN (``moe_block``) keeps the reference's
+sort-based capacity dispatch: its drops are the reference's drops.  The
+expert products are batched matmuls over the ``(E, cap, d)`` buffer (the
+reference computes them outside any Pallas kernel too).
+
+Not yet ported: ``loss_fn`` and training.  ``dtype`` is a torch dtype.  The
+reference's sharding and cost hints (``cost_unroll``, ``moe_ep_data``,
+``act_specs``) and ``remat`` (recompute in the backward pass) are dropped:
+the port runs on one device and serves without a backward pass.
 """
 from __future__ import annotations
 
@@ -111,15 +115,6 @@ class TransformerConfig:
             return d * (self.n_heads * h) + d * (r + pr) \
                 + r * (self.n_heads * 2 * h) + self.n_heads * h * d
         return d * (self.n_heads + 2 * self.n_kv_heads) * h + self.n_heads * h * d
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    for part in ("moe", "mla"):
-        if getattr(cfg, part) is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {part}={getattr(cfg, part)!r} is not yet "
-                f"ported to repro_torch; this slice runs the dense GQA/MHA "
-                f"transformer")
 
 
 # ---------------------------------------------------------------------------
@@ -222,40 +217,138 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MoE: top-k routing + sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+def moe_capacity(T: int, cfg: MoEConfig) -> int:
+    """Slots per expert for a call over T tokens, the reference's float
+    expression."""
+    return int(np.ceil(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (T, d) -> (gate, eidx), each (T, K).
+
+    float32 router logits and softmax; the K largest probabilities with
+    ties toward the lower expert index, as ``jax.lax.top_k`` orders them
+    (a stable descending sort; ``torch.topk`` promises no order among
+    ties); gates renormalised by max(sum, 1e-9).
+    """
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[:, :cfg.top_k], eidx[:, :cfg.top_k]
+    return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), eidx
+
+
+def moe_slots(eidx: torch.Tensor, n_experts: int, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat (t, k) assignments' (slot, keep), each (T*K,), in (t, k)
+    order: an entry's rank inside its expert in one stable sort by expert,
+    kept below ``cap``."""
+    flat_e = eidx.reshape(-1)
+    dev = flat_e.device
+    order = torch.argsort(flat_e, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(flat_e.numel(), device=dev)
+    # each expert's first position in the sorted order (no host sync, as
+    # bincount's size check would make)
+    starts = torch.searchsorted(flat_e[order],
+                                torch.arange(n_experts, device=dev))
+    slot = pos - starts[flat_e]
+    return slot, slot < cap
+
+
+def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
+              cfg: MoEConfig) -> torch.Tensor:
+    """x: (T, d) flat tokens -> (T, d).  Capacity-dropped sorted dispatch.
+
+    Each kept assignment owns one slot of the (E, cap, d) buffer, so the
+    dispatch is a copy (dropped ones land in a trash row past the buffer).
+    The combine sums a token's K contributions in a fixed order, by
+    ascending expert (the order of the reference's scatter-add over the
+    expert-sorted entries), so the result has no atomic-order bits.
+    """
+    T, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(T, cfg)
+    gate, eidx = moe_route(x, params["router"], cfg)
+    slot, keep = moe_slots(eidx, E, cap)
+    row = eidx.reshape(-1) * cap + slot               # buffer row if kept
+    buf = x.new_zeros((E * cap + 1, d))
+    buf.index_copy_(0, torch.where(keep, row, E * cap),
+                    x.repeat_interleave(K, dim=0))
+    h = buf[:E * cap].view(E, cap, d)
+    h = torch.nn.functional.silu(torch.bmm(h, params["w1"])) * \
+        torch.bmm(h, params["w3"])
+    out = torch.bmm(h, params["w2"]).view(E * cap, d)
+    contrib = out[torch.where(keep, row, 0)] * \
+        (gate.reshape(-1) * keep)[:, None].to(x.dtype)
+    rows = torch.arange(T, device=x.device)[:, None] * K + \
+        torch.argsort(eidx, dim=1)                   # (T, K) by expert
+    y = contrib[rows[:, 0]]
+    for j in range(1, K):
+        y = y + contrib[rows[:, j]]
+    if cfg.n_shared:
+        y = y + swiglu(x, params["sw1"], params["sw2"], params["sw3"])
+    return y
+
+
+# ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
 
+def _rope_dim(cfg: TransformerConfig) -> int:
+    """The rotated dims: the head dim, or MLA's decoupled rope dims."""
+    return cfg.mla.rope_head_dim if cfg.mla is not None else cfg.head_dim
+
+
 def _attn(x, params, cfg: TransformerConfig, rope, cache=None,
           cache_len: Optional[int] = None, biases=None):
-    """GQA/MHA self-attention. Returns (out, new_cache_kv).
+    """Self-attention (GQA/MHA or MLA). Returns (out, new_cache).
 
-    ``rope`` is ``rope_angles`` of the positions.  With a cache, the new K/V
-    rows are written into it in place at ``cache_len`` (the reference
-    returns an updated copy) and the step attends over the whole cache
-    through ``online_attention``'s scan with its chunk ``biases``.  Without
-    one, the flash-attention kernel computes the same function.
+    ``rope`` is ``rope_angles`` of the positions over ``_rope_dim(cfg)``.
+    With a cache, the step's rows (K/V, or MLA's latent and rope key) are
+    written into it in place at ``cache_len`` (the reference returns an
+    updated copy) and the step attends over the whole cache through
+    ``online_attention``'s scan with its chunk ``biases``.  Without one,
+    the flash-attention kernel computes the same function.
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, H, D)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, D)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, D)
-    q = apply_rope(q, *rope)
-    k = apply_rope(k, *rope)
+    if cfg.mla is not None:
+        pr = cfg.mla.rope_head_dim
+        latent = x @ params["w_dkv"]                       # (B, S, r)
+        k_rope = apply_rope((x @ params["w_kr"]).reshape(B, S, 1, pr), *rope)
+        q = torch.cat([apply_rope(q[..., :pr], *rope), q[..., pr:]], dim=-1)
+        if cache is not None:
+            lat_c, kr_c = cache                # (B, Sc, r), (B, Sc, 1, pr)
+            lat_c[:, cache_len:cache_len + S] = latent
+            kr_c[:, cache_len:cache_len + S] = k_rope
+            latent, k_rope = lat_c, kr_c
+        Sk = latent.shape[1]
+        k_nope = (latent @ params["w_uk"]).reshape(B, Sk, H, D - pr)
+        v = (latent @ params["w_uv"]).reshape(B, Sk, H, D)
+        k = torch.cat([k_rope.expand(B, Sk, H, pr), k_nope], dim=-1)
+    else:
+        k = apply_rope((x @ params["wk"]).reshape(B, S, Hkv, D), *rope)
+        v = (x @ params["wv"]).reshape(B, S, Hkv, D)
+        q = apply_rope(q, *rope)
+        if cache is not None:
+            k_c, v_c = cache                               # (B, Sc, Hkv, D)
+            k_c[:, cache_len:cache_len + S] = k
+            v_c[:, cache_len:cache_len + S] = v
+            k, v = k_c, v_c
     if cache is None:
         # (B, S, H, D) viewed as (B, H, S, D): the kernel reads and writes
         # through strides, so neither transpose copies
         out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True).transpose(1, 2)
-        new_cache = None
     else:
-        k_c, v_c = cache                                   # (B, Sc, Hkv, D)
-        k_c[:, cache_len:cache_len + S] = k
-        v_c[:, cache_len:cache_len + S] = v
-        out = _online_scan(q, k_c, v_c, biases)
-        new_cache = (k_c, v_c)
+        out = _online_scan(q, k, v, biases)
     out = out.reshape(B, S, H * D) @ params["wo"]
-    return out, new_cache
+    return out, cache
 
 
 def _layer(x, params, cfg: TransformerConfig, rope, cache=None,
@@ -264,7 +357,11 @@ def _layer(x, params, cfg: TransformerConfig, rope, cache=None,
                          cfg, rope, cache, cache_len, biases)
     x = x + h
     z = rmsnorm(x, params["ln2"], cfg.norm_eps)
-    y = swiglu(z, params["w1"], params["w2"], params["w3"])
+    if cfg.moe is not None:
+        B, S, d = z.shape
+        y = moe_block(z.reshape(B * S, d), params, cfg.moe).reshape(B, S, d)
+    else:
+        y = swiglu(z, params["w1"], params["w2"], params["w3"])
     return x + y, new_cache
 
 
@@ -272,24 +369,38 @@ def _layer(x, params, cfg: TransformerConfig, rope, cache=None,
 # init
 # ---------------------------------------------------------------------------
 
+DRAW_CHUNK = 1 << 26  # float32 samples drawn at a time (256 MB)
+
+
 def _dense(gen: torch.Generator, shape, dtype, device, scale=None):
+    """N(0, 1) samples times the scale, drawn in float32 ``DRAW_CHUNK`` at a
+    time into a preallocated tensor of ``dtype``: a whole stacked expert
+    tensor in float32 would not fit beside the rest (moonshot's ``w1`` is
+    8.9·10^9 values)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
-    s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(float(s)).to(device=device, dtype=dtype)
+    s = float(scale if scale is not None else 1.0 / np.sqrt(fan_in))
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), DRAW_CHUNK):
+        n = min(DRAW_CHUNK, flat.numel() - lo)
+        w = torch.randn(n, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        flat[lo:lo + n].copy_(w.mul_(s))
+    return out
 
 
 def init_params(cfg: TransformerConfig,
                 generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Stacked-layer params with the reference's names, shapes, dtypes and
-    scales: every per-layer array has leading dim n_layers.
+    scales: every per-layer array has leading dim n_layers.  MoE configs
+    carry the reference's float32 ``router`` in every dtype.
 
     ``generator`` (default: seed 0 on the target device) draws the normal
-    samples; it does not reproduce ``jax.random``'s numbers.
+    samples; it does not reproduce ``jax.random``'s numbers.  Every LM arch
+    of the reference is served; not yet ported are ``din``, training and
+    the GNN archs.
     """
-    _dense_only(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -297,20 +408,34 @@ def init_params(cfg: TransformerConfig,
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L, dt = cfg.n_layers, cfg.dtype
 
-    def dense(shape, scale=None):
-        return _dense(gen, shape, dt, dev, scale)
+    def dense(shape, scale=None, dtype=dt):
+        return _dense(gen, shape, dtype, dev, scale)
 
     layer: Dict[str, torch.Tensor] = {
         "ln1": torch.ones((L, d), dtype=dt, device=dev),
         "ln2": torch.ones((L, d), dtype=dt, device=dev),
         "wo": dense((L, H * D, d)),
         "wq": dense((L, d, H * D)),
-        "wk": dense((L, d, Hkv * D)),
-        "wv": dense((L, d, Hkv * D)),
-        "w1": dense((L, d, cfg.d_ff)),
-        "w2": dense((L, cfg.d_ff, d)),
-        "w3": dense((L, d, cfg.d_ff)),
     }
+    if cfg.mla is not None:
+        r, pr = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
+        layer.update(w_dkv=dense((L, d, r)), w_kr=dense((L, d, pr)),
+                     w_uk=dense((L, r, H * (D - pr))),
+                     w_uv=dense((L, r, H * D)))
+    else:
+        layer.update(wk=dense((L, d, Hkv * D)), wv=dense((L, d, Hkv * D)))
+    if cfg.moe is not None:
+        E, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layer.update(router=dense((L, d, E), dtype=torch.float32),
+                     w1=dense((L, E, d, f)), w2=dense((L, E, f, d)),
+                     w3=dense((L, E, d, f)))
+        if cfg.moe.n_shared:
+            fs = f * cfg.moe.n_shared
+            layer.update(sw1=dense((L, d, fs)), sw2=dense((L, fs, d)),
+                         sw3=dense((L, d, fs)))
+    else:
+        layer.update(w1=dense((L, d, cfg.d_ff)), w2=dense((L, cfg.d_ff, d)),
+                     w3=dense((L, d, cfg.d_ff)))
     params: Dict[str, Any] = {
         "embed": dense((cfg.vocab, d), scale=1.0),
         "ln_f": torch.ones((d,), dtype=dt, device=dev),
@@ -332,7 +457,6 @@ def params_from_reference(np_params: Dict[str, Any], cfg: TransformerConfig,
     bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not
     take) go through float32, which holds every bf16 value exactly.
     """
-    _dense_only(cfg)
     dev = resolve_device(device)
 
     def conv(a):
@@ -358,11 +482,10 @@ def _layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
 def trunk(params: Dict[str, Any], tokens: torch.Tensor,
           cfg: TransformerConfig) -> torch.Tensor:
     """tokens (B, S) -> the last layer's output (B, S, d_model)."""
-    _dense_only(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    rope = rope_angles(positions, _rope_dim(cfg), cfg.rope_theta)
     for i in range(cfg.n_layers):
         x, _ = _layer(x, _layer_params(params, i), cfg, rope)
     return x
@@ -385,11 +508,18 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stacked KV cache (k, v), each (L, batch, max_len, Hkv, D), zeros."""
-    _dense_only(cfg)
+    """Stacked cache of zeros, leading dim n_layers: (k, v), each (L, batch,
+    max_len, Hkv, D); with MLA the latent (L, batch, max_len, r) and the
+    rope key (L, batch, max_len, 1, pr)."""
     dt = dtype or cfg.dtype
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    L = cfg.n_layers
+    if cfg.mla is not None:
+        r, pr = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
+        return (torch.zeros((L, batch, max_len, r), dtype=dt, device=dev),
+                torch.zeros((L, batch, max_len, 1, pr), dtype=dt,
+                            device=dev))
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(shape, dtype=dt, device=dev))
 
@@ -402,21 +532,20 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor, cache: Any,
     updated in place and returned (the reference returns a new one);
     ``cache_len`` is a host integer, so a step needs no device sync.
     """
-    _dense_only(cfg)
     B, S = tokens.shape
     off = int(cache_len)
     x = params["embed"][tokens.long()]
-    k_c, v_c = cache                           # (L, B, Sc, Hkv, D)
-    if off + S > k_c.shape[2]:
-        raise ValueError(f"KV cache of {k_c.shape[2]} slots cannot take "
-                         f"{S} tokens at {off}")
+    c_a, c_b = cache                           # slots on axis 2 of each
+    Sc = c_a.shape[2]
+    if off + S > Sc:
+        raise ValueError(f"KV cache of {Sc} slots cannot take {S} tokens "
+                         f"at {off}")
     positions = off + torch.arange(S, device=x.device).expand(B, S)
     # rope and the chunk masks depend on positions only: once per step
-    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    rope = rope_angles(positions, _rope_dim(cfg), cfg.rope_theta)
     valid = torch.full((B,), off + S, dtype=torch.int32, device=x.device)
-    biases = _chunk_biases(positions, valid, k_c.shape[2], True,
-                           cfg.attn_chunk)
+    biases = _chunk_biases(positions, valid, Sc, True, cfg.attn_chunk)
     for i in range(cfg.n_layers):
         x, _ = _layer(x, _layer_params(params, i), cfg, rope,
-                      cache=(k_c[i], v_c[i]), cache_len=off, biases=biases)
+                      cache=(c_a[i], c_b[i]), cache_len=off, biases=biases)
     return head(params, x, cfg), cache, off + S

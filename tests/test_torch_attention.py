@@ -8,6 +8,7 @@ values on both sides.  Tolerances are those of ``tests/test_kernels.py``:
 2e-5 in float32 (sums in another order), 2e-2 in bf16 (the output is
 rounded to bf16, one ulp near 2 is 1.6e-2).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.models.transformer import online_attention as j_online
+from repro.models.transformer import online_attention
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
@@ -23,6 +24,14 @@ from repro_torch.kernels.flash_attention import flash_attention
 # one intra-op thread: the suite runs its workers on shared cores, and
 # idle OpenMP threads spin against the other workers' tests
 torch.set_num_threads(1)
+
+# the reference's functions compiled whole, once per shape: eager JAX
+# compiles op by op
+j_attention_ref = jax.jit(jref.attention_ref, static_argnames="causal")
+j_attention = jax.jit(jops.attention, static_argnames=(
+    "causal", "block_q", "block_k", "interpret"))
+j_online = jax.jit(online_attention, static_argnames=("causal", "chunk",
+                                                      "unroll"))
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -56,7 +65,7 @@ def test_attention_ref_matches_reference(B, H, Sq, Sk, D, bq, bk, dtype):
     (jq, jk, jv), (q, k, v) = inputs(0, (B, H, Sq, D), (B, H, Sk, D), dtype)
     got = ref.attention_ref(q, k, v, causal=True)
     assert got.dtype == q.dtype
-    close(got, jref.attention_ref(jq, jk, jv, causal=True), DTYPES[dtype][2])
+    close(got, j_attention_ref(jq, jk, jv, causal=True), DTYPES[dtype][2])
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk,D,bq,bk", GRID)
@@ -68,7 +77,7 @@ def test_ops_attention_matches_reference_kernel(B, H, Sq, Sk, D, bq, bk,
     before = launch_counts["flash_attention"]
     got = ops.attention(q, k, v, causal=True, block_q=bq, block_k=bk)
     assert launch_counts["flash_attention"] == before
-    want = jops.attention(jq, jk, jv, causal=True, block_q=bq, block_k=bk)
+    want = j_attention(jq, jk, jv, causal=True, block_q=bq, block_k=bk)
     close(got, want, DTYPES[dtype][2])
 
 
@@ -76,7 +85,7 @@ def test_ops_attention_noncausal():
     (jq, jk, jv), (q, k, v) = inputs(1, (1, 2, 64, 32), (1, 2, 64, 32),
                                      "f32")
     got = ops.attention(q, k, v, causal=False, block_q=32, block_k=32)
-    want = jops.attention(jq, jk, jv, causal=False, block_q=32, block_k=32)
+    want = j_attention(jq, jk, jv, causal=False, block_q=32, block_k=32)
     close(got, want, 2e-5)
 
 
@@ -101,9 +110,9 @@ def test_ops_attention_fewer_queries_than_keys(Sq, Sk, dtype):
     (jq, jk, jv), (q, k, v) = inputs(3, (2, 2, Sq, 64), (2, 2, Sk, 64),
                                      dtype)
     got = ops.attention(q, k, v, causal=True, block_q=32, block_k=32)
-    want = jops.attention(jq, jk, jv, causal=True, block_q=32, block_k=32)
+    want = j_attention(jq, jk, jv, causal=True, block_q=32, block_k=32)
     close(got, want, DTYPES[dtype][2])
-    close(got, jref.attention_ref(jq, jk, jv, causal=True), DTYPES[dtype][2])
+    close(got, j_attention_ref(jq, jk, jv, causal=True), DTYPES[dtype][2])
 
 
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (6, 1), (4, 4)])
@@ -134,7 +143,7 @@ def test_flash_attention_tile_edges_match_reference(B, H, Hkv, Sq, Sk,
     (jq, jk, jv), (q, k, v) = inputs(5, (B, Sq, H, D), (B, Sk, Hkv, D),
                                      "f32")
     G = H // Hkv
-    want = jref.attention_ref(*(jnp.swapaxes(x, 1, 2) for x in (
+    want = j_attention_ref(*(jnp.swapaxes(x, 1, 2) for x in (
         jq, jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2))),
         causal=causal)
     got = flash_attention(q.transpose(1, 2), k.transpose(1, 2),

@@ -506,3 +506,51 @@ def test_sharded_lane_on_card(cuda_device):
                                         mesh=Mesh(("cuda:0",) * 2)),
                     device=cuda_device)
     assert int(hub.core.max()) == 1 and hub.peel_stats["drain_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_moe_smoke_on_card(cuda_device):
+    """moonshot-v1-16b-a3b's smoke config on the card equals the CPU:
+    ``forward`` with one flash launch per layer (one head, so head_dim 64,
+    a width the kernel takes, where the smoke config's 16 is not), and
+    ``serve_lm``'s greedy tokens (decode: no flash launch).  float32 with
+    TF32 off; rtol/atol 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as T
+
+    def on_card(params):
+        return {k: ({n: w.to(cuda_device) for n, w in v.items()}
+                    if k == "layers" else v.to(cuda_device))
+                for k, v in params.items()}
+
+    cfg = get_arch("moonshot-v1-16b-a3b").make_smoke_config()
+    one_head = dataclasses.replace(cfg, n_heads=1, n_kv_heads=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = T.init_params(one_head, generator=torch.Generator()
+                               .manual_seed(0), device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 40),
+                             generator=torch.Generator().manual_seed(1))
+        want = T.forward(params, toks, one_head)
+        before = launch_counts["flash_attention"]
+        got = T.forward(on_card(params), toks.to(cuda_device), one_head)
+        assert launch_counts["flash_attention"] - before == cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+        params = T.init_params(cfg, generator=torch.Generator()
+                               .manual_seed(0), device="cpu")
+        kw = dict(n_requests=6, batch_slots=4, prompt_len=8, gen_len=10,
+                  quiet=True)
+        before = launch_counts["flash_attention"]
+        got = serve_lm("moonshot-v1-16b-a3b",
+                       params=on_card(params), device=cuda_device, **kw)
+        assert launch_counts["flash_attention"] == before
+        want = serve_lm("moonshot-v1-16b-a3b", params=params, device="cpu",
+                        **kw)
+        for r in want:
+            np.testing.assert_array_equal(got[r], want[r])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

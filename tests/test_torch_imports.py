@@ -54,7 +54,8 @@ def test_port_sources_found():
                 "core/streaming.py", "serve/__init__.py", "serve/router.py",
                 "serve/frontend.py", "serve/status.py", "serve/cache.py",
                 "serve/httpd.py", "core/distributed.py", "launch/mesh.py",
-                "configs/nucleus.py", "distbuild/builder.py",
+                "configs/nucleus.py", "configs/moonshot_v1_16b_a3b.py",
+                "configs/deepseek_v2_lite_16b.py", "distbuild/builder.py",
                 "distbuild/exchange.py", "distbuild/planner.py"):
         assert mod in rel, mod
 
@@ -117,7 +118,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.serve, repro_torch.core.session, "
             "repro_torch.core.streaming, repro_torch.serve, "
             "repro_torch.core.distributed, repro_torch.launch.mesh, "
-            "repro_torch.configs.nucleus, repro_torch.distbuild; "
+            "repro_torch.configs.nucleus, repro_torch.distbuild, "
+            "repro_torch.configs.moonshot_v1_16b_a3b, "
+            "repro_torch.configs.deepseek_v2_lite_16b; "
             "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")

@@ -15,6 +15,7 @@ tests/test_torch_cuda.py (on a card) and ``chip_smoke.py``.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref, tricount as jtricount
@@ -33,6 +34,10 @@ from repro_torch.kernels.tricount import tricount_oriented, tricount_per_edge
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.fast
+
+# the reference's round oracle compiled whole, once per shape (level and
+# round traced): eager JAX compiles op by op
+j_peel_round_ref = jax.jit(jref.peel_round_ref)
 
 
 def t(x):
@@ -109,7 +114,7 @@ def test_peel_round_ref_and_wrapper_match_reference(n_r, E, C, kind):
     ids_pad = np.concatenate([rids, np.full(7, n_r, np.int32)])
     mem_pad = np.concatenate([members, np.full((7, C), -1, np.int32)])
     for level in (0, 3, 7, 11):
-        want = jref.peel_round_ref(ids_pad, mem_pad, *state, level, 5)
+        want = j_peel_round_ref(ids_pad, mem_pad, *state, level, 5)
         assert_skipped_deg_kept(want, state, level)
         got = ref.peel_round_ref(t(ids_pad), t(mem_pad),
                                  *(t(x) for x in state), level, 5)

@@ -1,9 +1,12 @@
 """The port's LM serving (``repro_torch.launch``) against the reference's
-``serve_lm`` and ``lm_prefill_step`` on the CPU, with the reference's own
-parameters (``init_params(PRNGKey(0))``, as its ``serve_lm`` draws them)
-carried across by ``params_from_reference``.  Greedy tokens must be equal:
-float32 smoke configs, where a last-digit difference in the logits does
-not change an argmax of these seeds.
+``serve_lm`` and ``lm_prefill_step`` on the CPU.  Both sides get numpy
+parameters at the reference's names, shapes and scales
+(``test_torch_transformer.j_params``), carried across by
+``params_from_reference``; the reference's ``serve_lm`` draws its own
+through ``init_params``, so the test hands it the same ones there, and its
+init is never compiled.  Greedy tokens must be equal: float32 smoke
+configs, where a last-digit difference in the logits does not change an
+argmax of these seeds.
 """
 import jax
 import jax.numpy as jnp
@@ -19,26 +22,30 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import serve, steps
 from repro_torch.models import transformer as T
+from test_torch_transformer import j_params
 
 # one intra-op thread: the suite runs its workers on shared cores, and
 # idle OpenMP threads spin against the other workers' tests
 torch.set_num_threads(1)
 
 
-def converted(arch, init=JT.init_params):
+LM_ARCHS = ["minicpm-2b", "minitron-4b", "moonshot-v1-16b-a3b",
+            "deepseek-v2-lite-16b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_serve_lm_tokens_match_reference(arch, monkeypatch):
+    """Six requests in waves of four (one full wave, one of two), with the
+    same parameters on both sides."""
     jc = j_get_arch(arch).make_smoke_config()
-    tc = get_arch(arch).make_smoke_config()
-    jp = init(jax.random.PRNGKey(0), jc)
-    return jc, tc, jp, T.params_from_reference(jax.device_get(jp), tc,
-                                               device="cpu")
+    jp = j_params(jc)
 
-
-@pytest.mark.parametrize("arch", ["minicpm-2b", "minitron-4b"])
-def test_serve_lm_tokens_match_reference(arch):
-    """Six requests in waves of four (one full wave, one of two); the
-    reference's serve_lm draws init_params(PRNGKey(0)) eagerly, so the
-    port gets the same draw."""
-    _, _, _, tp = converted(arch)
+    def init_params(key, cfg):
+        assert cfg == jc
+        return jp
+    monkeypatch.setattr(JT, "init_params", init_params)
+    tp = T.params_from_reference(jp, get_arch(arch).make_smoke_config(),
+                                 device="cpu")
     kw = dict(n_requests=6, batch_slots=4, prompt_len=8, gen_len=10,
               quiet=True)
     want = jserve.serve_lm(arch, **kw)
@@ -52,10 +59,13 @@ def test_serve_lm_tokens_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "minitron-4b",
-                                  "stablelm-12b"])
+                                  "stablelm-12b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-lite-16b"])
 def test_prefill_step_argmax_matches_reference(arch):
-    jc, tc, jp, tp = converted(arch, jax.jit(JT.init_params,
-                                             static_argnums=1))
+    jc = j_get_arch(arch).make_smoke_config()
+    tc = get_arch(arch).make_smoke_config()
+    jp = j_params(jc)
+    tp = T.params_from_reference(jp, tc, device="cpu")
     toks = np.random.default_rng(7).integers(0, tc.vocab, (3, 21)).astype(
         np.int32)
     want = jax.jit(jsteps.lm_prefill_step, static_argnums=2)(

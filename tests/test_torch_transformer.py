@@ -1,8 +1,9 @@
 """The port's dense transformer (``repro_torch.models.transformer``) and
 LM configs against the reference's, on the CPU.
 
-The same numpy inputs, and the reference's own parameters carried across
-by ``params_from_reference``, go through both.  Everything is float32 at
+The same numpy inputs, and numpy parameters at the reference's names,
+shapes and scales carried across by ``params_from_reference``, go through
+both.  Everything is float32 at
 smoke widths; tolerances are stated per test (float32 sums in another
 order than XLA's).
 """
@@ -26,6 +27,7 @@ from repro_torch.models import transformer as T
 torch.set_num_threads(1)
 
 ARCHS = ("minicpm-2b", "minitron-4b", "stablelm-12b")
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-lite-16b")
 # the reference's sharding/cost hints and remat: no counterpart on one
 # device without a backward pass
 REFERENCE_ONLY = ("remat", "cost_unroll", "moe_ep_data", "act_specs")
@@ -38,15 +40,37 @@ def t(a):
 
 # the reference's functions compiled whole: eager JAX compiles op by op,
 # which costs seconds per config on the CPU
-j_init = jax.jit(JT.init_params, static_argnums=1)
 j_forward = jax.jit(JT.forward, static_argnums=2)
 j_decode = jax.jit(JT.decode_step, static_argnums=4)
+j_rmsnorm = jax.jit(JT.rmsnorm, static_argnums=2)
+j_online = jax.jit(JT.online_attention, static_argnames=("causal", "chunk",
+                                                         "unroll"))
+
+
+def ref_shapes(jc):
+    """The reference's parameter leaves as shapes (``jax.eval_shape`` of
+    its ``init_params``: traced, never compiled)."""
+    return jax.eval_shape(functools.partial(JT.init_params, cfg=jc),
+                          jax.random.PRNGKey(0))
 
 
 @functools.lru_cache(maxsize=None)
-def j_params(cfg):
-    """The reference's parameters (seed 0) as numpy; read, never written."""
-    return jax.device_get(j_init(jax.random.PRNGKey(0), cfg))
+def j_params(jc, seed=0):
+    """numpy parameters at the reference's names, shapes, dtypes and scales
+    (unit norms and embedding rows, 1/sqrt(fan_in) weights, as its
+    ``_dense`` draws them), from ``np.random.default_rng(seed)``; read,
+    never written."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = path[-1].key
+        if name.startswith("ln"):
+            a = np.ones(s.shape, np.float32)
+        else:
+            scale = 1.0 if name == "embed" else 1.0 / np.sqrt(s.shape[-2])
+            a = (rng.standard_normal(s.shape) * scale).astype(np.float32)
+        return a.astype(s.dtype)
+    return jax.tree_util.tree_map_with_path(draw, ref_shapes(jc))
 
 
 def smoke_pair(arch):
@@ -54,12 +78,14 @@ def smoke_pair(arch):
 
 
 def test_registry_has_the_dense_archs_only():
-    """The ported LM archs are the dense ones; the registry also holds the
-    nucleus workload's config (``configs.nucleus``)."""
-    assert ALL_ARCH_IDS == tuple(sorted(ARCHS + ("nucleus",)))
+    """The ported LM archs are the reference's five: the three dense ones,
+    the MoE moonshot-v1-16b-a3b and the MoE + MLA deepseek-v2-lite-16b
+    (their parity: tests/test_torch_moe_mla.py); the registry also holds
+    the nucleus workload's config (``configs.nucleus``)."""
+    assert ALL_ARCH_IDS == tuple(sorted(ARCHS + MOE_ARCHS + ("nucleus",)))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 @pytest.mark.parametrize("which", ["make_config", "make_smoke_config"])
 def test_config_fields_match_reference(arch, which):
     jc = getattr(j_get_arch(arch), which)()
@@ -68,10 +94,13 @@ def test_config_fields_match_reference(arch, which):
     assert names == [f.name for f in dataclasses.fields(jc)
                      if f.name not in REFERENCE_ONLY]
     for name in names:
+        a, b = getattr(tc, name), getattr(jc, name)
         if name == "dtype":
-            assert tc.dtype == _JDT[jc.dtype]
+            assert a == _JDT[b]
+        elif name in ("moe", "mla") and b is not None:
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
         else:
-            assert getattr(tc, name) == getattr(jc, name), name
+            assert a == b, name
     assert tc.head_dim == jc.head_dim
     assert tc.param_count() == jc.param_count()
     assert tc.active_param_count() == jc.active_param_count()
@@ -91,41 +120,45 @@ def _port_config(jc):
     return T.TransformerConfig(**kw)
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
-                                  "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_mla_configs_count_and_raise(arch):
     """MoE/MLA configs build with the reference's parameter counts, and
-    every model function names the part as not yet ported."""
+    every model function runs on the smoke config: init_params,
+    init_cache, forward and a decode step give finite values of the
+    expected shapes (their parity with the reference:
+    tests/test_torch_moe_mla.py)."""
     for which in ("make_config", "make_smoke_config"):
         jc = getattr(j_get_arch(arch), which)()
         tc = _port_config(jc)
         assert tc.param_count() == jc.param_count()
         assert tc.active_param_count() == jc.active_param_count()
         assert tc._attn_params() == jc._attn_params()
-    part = "moe" if tc.moe is not None else "mla"
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    for call in (lambda: T.init_params(tc, device="cpu"),
-                 lambda: T.init_cache(tc, 1, 4, device="cpu"),
-                 lambda: T.forward({}, toks, tc),
-                 lambda: T.decode_step({}, toks, None, 0, tc)):
-        with pytest.raises(NotImplementedError,
-                           match=f"{part}=.*not yet ported"):
-            call()
+    params = T.init_params(tc, device="cpu")
+    cache = T.init_cache(tc, 1, 4, device="cpu")
+    assert len(cache) == 2 and all(c.shape[:3] == (tc.n_layers, 1, 4)
+                                   for c in cache)
+    logits = T.forward(params, toks, tc)
+    assert logits.shape == (1, 4, tc.vocab)
+    step, cache, n = T.decode_step(params, toks, cache, 0, tc)
+    assert n == 4 and step.shape == (1, 4, tc.vocab)
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
+    torch.testing.assert_close(step, logits, rtol=1e-4, atol=1e-4)
 
 
 def test_rmsnorm_matches_reference():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 5, 24)).astype(np.float32) * 3
     s = rng.standard_normal(24).astype(np.float32)
-    want = JT.rmsnorm(jnp.asarray(x), jnp.asarray(s), 1e-5)
+    want = j_rmsnorm(jnp.asarray(x), jnp.asarray(s), 1e-5)
     got = T.rmsnorm(t(x), t(s), 1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
     # bf16 activations: the norm runs in f32 and casts back, as there
     xb = t(x).to(torch.bfloat16)
     gb = T.rmsnorm(xb, t(s).to(torch.bfloat16), 1e-5)
-    wb = JT.rmsnorm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(s, jnp.bfloat16),
-                    1e-5)
+    wb = j_rmsnorm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(s, jnp.bfloat16),
+                   1e-5)
     assert gb.dtype == torch.bfloat16
     np.testing.assert_allclose(gb.float().numpy(), np.asarray(wb, np.float32),
                                rtol=1e-2, atol=1e-2)
@@ -164,19 +197,22 @@ def test_online_attention_offsets_valid_len_gqa(causal, H, Hkv):
     v = rng.standard_normal((B, Sk, Hkv, D)).astype(np.float32)
     pos = np.stack([9 + np.arange(Sq), 14 + np.arange(Sq)]).astype(np.int32)
     valid = np.array([12, 17], np.int32)
-    want = JT.online_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                               jnp.asarray(pos), jnp.asarray(valid),
-                               causal=causal, chunk=8)
+    want = j_online(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    jnp.asarray(pos), jnp.asarray(valid), causal=causal,
+                    chunk=8)
     got = T.online_attention(t(q), t(k), t(v), t(pos), t(valid),
                              causal=causal, chunk=8)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_init_params_names_shapes_dtypes(arch):
+    """The smoke configs' leaves have the reference's paths, shapes, dtypes
+    and scales (the MoE router float32; full width:
+    tests/test_torch_moe_mla.py)."""
     jc, tc = smoke_pair(arch)
-    jp = j_params(jc)
+    jp = ref_shapes(jc)
     tp = T.init_params(tc, generator=torch.Generator().manual_seed(3),
                        device="cpu")
     jl = jax.tree_util.tree_leaves_with_path(jp)
@@ -190,6 +226,12 @@ def test_init_params_names_shapes_dtypes(arch):
     w1 = tp["layers"]["w1"]
     assert abs(float(w1.std()) * np.sqrt(w1.shape[-2]) - 1.0) < 0.1
     assert torch.equal(tp["layers"]["ln1"], torch.ones_like(tp["layers"]["ln1"]))
+    if tc.moe is not None:
+        assert tp["layers"]["router"].dtype == torch.float32
+        for name in ("w2", "router", "sw1", "w_uk"):
+            w = tp["layers"].get(name)
+            if w is not None:
+                assert abs(float(w.std()) * np.sqrt(w.shape[-2]) - 1) < 0.15
 
 
 def test_params_from_reference_bf16_exact():
