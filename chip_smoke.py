@@ -10,8 +10,9 @@ the million-vertex graph, then LM inference of minicpm-2b at full width
 kernel and a decode server, then the nucleus server (a warm Session,
 exact updates, a multi-tenant router and its HTTP surface), the
 sharded lane (the sharded build, the peel over a mesh of slabs, its exact
-compressed reduction and a sharded pool), and last MoE and MLA inference
-of moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width.  Every kernel
+compressed reduction and a sharded pool), MoE and MLA inference of
+moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, and last LM
+training of minicpm-2b at full width (AdamW steps, checkpoints).  Every kernel
 of those paths is checked against its plain-torch version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
@@ -102,7 +103,17 @@ Phases (any failure ends the run with a non-zero exit):
      smoke configs' ``serve_lm`` on card and CPU (equal greedy tokens);
      flash attention's, SDPA's and the bound's times at their prefill
      shape (1, 16, 32768, 128) and at stablelm-12b's (1, 32, 8, 4096, 160);
- 12. a JSON line of per-kernel numbers, the card's name and power limit,
+ 12. LM training of minicpm-2b (``phase_train``): at full width in bf16
+     with remat, B = 1 and train_4k's S = 4,096, four ``lm_train_step``s
+     and two ``lm_train_step_microbatched`` of 2 x 1 timed (finite losses,
+     every leaf updated, no flash launch: training attends through the
+     online scan), one step traced, and the trained weights' prefill (one
+     flash launch a layer); card == CPU at 2 layers in f32 (loss, every
+     gradient leaf, the params after a step); ``train_lm`` of the 2-layer
+     cut in bf16 saving at step 2 and a run resumed from it (bit for bit,
+     the reference's checkpoint keys, losses equal to an uninterrupted
+     run's);
+ 13. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -183,6 +194,23 @@ FLASH_D160 = (1, 32, 8, 4096, 160)
 # order than the twin's, far under the ~1e-3 of a bf16 or TF32 product.
 FLASH_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 CONTROL_SCALE = 1.03     # the control: q scaled, i.e. the softmax scale off
+# phase 12: LM training of minicpm-2b (train_4k's sequence of 4,096 tokens)
+TRAIN_B = 1              # train_4k's global batch of 256, cut to one card
+TRAIN_STEPS = 4          # lm_train_step calls, then MICRO_STEPS calls of
+MICRO_STEPS = 2          # lm_train_step_microbatched over 2 x TRAIN_B rows
+TRAIN_LR = 2e-3          # the least round lr whose first AdamW step
+                         # (lr·(1 ± 0.1)) moves a bf16 1.0 (> 2^-9)
+TRAIN_CPU_B, TRAIN_CPU_S = 2, 256  # card vs CPU: 2 layers, f32
+TRAIN_CPU_TOL = 1e-3     # ||card - cpu|| / ||cpu|| per leaf, f32 sums
+RESUME_STEPS = 4         # (c): bf16, 2 layers, resumed from step 2
+# (c)'s arrays.npz members: the reference's key paths of (params, opt_state)
+PARAM_KEYS = ("['embed']", "['layers']/['ln1']", "['layers']/['ln2']",
+              "['layers']/['w1']", "['layers']/['w2']", "['layers']/['w3']",
+              "['layers']/['wk']", "['layers']/['wo']", "['layers']/['wq']",
+              "['layers']/['wv']", "['ln_f']", "['unembed']")
+CKPT_MEMBERS = ([f"[0]/{k}.npy" for k in PARAM_KEYS] + ["[1]/.step.npy"] +
+                [f"[1]/.{m}/{k}.npy" for m in ("mu", "nu")
+                 for k in PARAM_KEYS])
 
 
 def log(msg: str) -> None:
@@ -1431,6 +1459,257 @@ def phase_moe(seed: int):
     return out, timing
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (a float -0.0 is not 0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(ints[x.element_size()]) for x in (a, b))
+    return torch.equal(a, b)
+
+
+def rel_norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp(
+        min=1e-30))
+
+
+def phase_train(seed: int):
+    """Phase 12: LM training of minicpm-2b.  (a) At its published width
+    (bf16, remat) on ``TokenStream`` batches of train_4k's 4,096 tokens:
+    TRAIN_STEPS ``lm_train_step``s at B = 1, then MICRO_STEPS
+    ``lm_train_step_microbatched`` of 2 x 1, each timed (synced), with
+    finite loss and norm, every parameter leaf changed by the first step
+    and no flash launch; one more step traced; then ``lm_prefill_step``
+    of the trained weights (flash launches = layers).  (b) The training
+    route card == CPU at full width with 2 layers in f32: loss, every
+    gradient leaf and the params after one ``lm_train_step``.  (c) The
+    same 2-layer cut in bf16 through ``train_lm``: a run saves its state
+    at step 2 (``arrays.npz`` keyed as the reference keys it), a second
+    run resumes from it bit for bit and its losses equal an uninterrupted
+    run's (rtol 1e-4)."""
+    import shutil
+    import tempfile
+    import zipfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import base, get_arch
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import (lm_prefill_step, lm_train_step,
+                                          lm_train_step_microbatched,
+                                          lm_value_and_grad)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_paths, leaves
+
+    spec = get_arch(LM_ARCH)
+    cfg = spec.make_config()
+    S = spec.shape("train_4k").dims["seq_len"]
+    require(cfg.remat and cfg.dtype == torch.bfloat16,
+            "the full config trains in bf16 with remat")
+    n_params = cfg.param_count()
+    total = TRAIN_STEPS + MICRO_STEPS
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, schedule="wsd", warmup_steps=1,
+                            total_steps=total)
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+    # -- (a) full width ---------------------------------------------------
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    opt_state = adamw.init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    streams = [TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=S,
+                                             global_batch=n * TRAIN_B,
+                                             seed=seed)) for n in (1, 2)]
+    log(f"[train] {LM_ARCH} full width: {n_params} params, bf16, remat; "
+        f"params + moments {init_s:.2f} s; train_4k's S = {S}, its global "
+        f"batch of 256 cut to {TRAIN_B} (one card); AdamW lr {TRAIN_LR} "
+        f"(WSD, warmup cut to 1 step; step 0 includes the first call's "
+        f"set-up)")
+    first = [p.clone() for p in leaves(params)]
+    steps = []
+    reset_launch_counts()
+    for i in range(total):
+        micro = i >= TRAIN_STEPS
+        b = on_card(streams[micro].batch(i))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if micro:
+            params, opt_state, m = lm_train_step_microbatched(
+                params, opt_state, b, cfg, opt, 2)
+        else:
+            params, opt_state, m = lm_train_step(params, opt_state, b, cfg,
+                                                 opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        m = {k: float(v) for k, v in m.items()}
+        ntok = b["tokens"].numel()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps.append({"step": i, "micro": micro, "s": wall,
+                      "tok_s": ntok / wall, "peak_gb": peak, **m})
+        log(f"[train] step {i} ({'microbatched 2 x 1' if micro else 'B=1'}"
+            f"): {wall:.3f} s, {ntok / wall:.0f} tok/s "
+            f"({6 * n_params * ntok / wall / 1e12:.1f} TFLOP/s by 6ND), "
+            f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lr "
+            f"{m['lr']:.3g}, peak {peak:.2f} GB")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"step {i}: loss or grad_norm not finite")
+        if i == 0:
+            same = [k for (k, p), p0 in zip(flatten_with_paths(params),
+                                            first) if torch.equal(p, p0)]
+            require(not same, f"leaves unchanged by the first step: {same}")
+            del first
+            torch.cuda.empty_cache()
+    train_counts = dict(launch_counts)
+    require(train_counts["flash_attention"] == 0,
+            f"flash attention launched {train_counts['flash_attention']} "
+            f"times during training")
+
+    b = on_card(streams[0].batch(total))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt_state, m = lm_train_step(params, opt_state, b, cfg, opt)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t)
+    events = device_events(prof)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    log(f"[train] traced lm_train_step: device time {busy_ms:.1f} ms in "
+        f"{sum(e.count for e in events)} kernels over a {wall_ms:.1f} ms "
+        f"wall (traced): {100 * (1 - busy_ms / wall_ms):.1f}% idle")
+    top_kernels(events, busy_ms, "train", "train step", n=8)
+    del opt_state
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    nxt = lm_prefill_step(params, {"tokens": b["tokens"]}, cfg)
+    torch.cuda.synchronize()
+    prefill_launches = launch_counts["flash_attention"]
+    require(prefill_launches == cfg.n_layers,
+            f"the trained model's prefill launched flash attention "
+            f"{prefill_launches} times, not {cfg.n_layers}")
+    require(0 <= int(nxt) < cfg.vocab, "prefill token out of range")
+    log(f"[train] lm_prefill_step of the trained weights, S={S}: next "
+        f"token {int(nxt)}, flash launches {prefill_launches}; "
+        f"launches during the {total} steps: {train_counts}")
+    del params, b
+    torch.cuda.empty_cache()
+
+    # -- (b) card vs CPU: full width, 2 layers, f32 -------------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    cpu_params = T.init_params(cfg2, generator=torch.Generator().manual_seed(
+        seed), device="cpu")
+    toks = torch.randint(0, cfg2.vocab, (TRAIN_CPU_B, TRAIN_CPU_S + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    cb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    gb = {k: v.cuda() for k, v in cb.items()}
+    t = time.perf_counter()
+    cpu_loss, cpu_grads = lm_value_and_grad(cpu_params, cb["tokens"],
+                                            cb["labels"], cfg2)
+    cpu_s = time.perf_counter() - t
+    card_loss, card_grads = lm_value_and_grad(
+        to_device(cpu_params, "cuda"), gb["tokens"], gb["labels"], cfg2)
+    loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    names = [k for k, _ in flatten_with_paths(cpu_params)]
+    grad_err = {k: rel_norm_err(g.cpu(), c) for k, g, c in
+                zip(names, card_grads, cpu_grads)}
+    worst = max(grad_err, key=grad_err.get)
+    require(loss_err <= TRAIN_CPU_TOL and grad_err[worst] <= TRAIN_CPU_TOL,
+            f"training route card != CPU: loss rel err {loss_err:.3g}, "
+            f"gradients {grad_err}")
+    del card_grads, cpu_grads
+    stepped = {}
+    for dev in ("cuda", "cpu"):   # the CPU step updates cpu_params in place
+        p = to_device(cpu_params, dev)
+        stepped[dev], _, _ = lm_train_step(
+            p, adamw.init_state(p), cb if dev == "cpu" else gb, cfg2, opt)
+    param_err = {k: rel_norm_err(a.cpu(), c) for k, a, c in zip(
+        names, leaves(stepped["cuda"]), leaves(stepped["cpu"]))}
+    worst_p = max(param_err, key=param_err.get)
+    require(param_err[worst_p] <= TRAIN_CPU_TOL,
+            f"params after one lm_train_step: card != CPU {param_err}")
+    log(f"[train] card == CPU, full width, 2 layers, f32, B={TRAIN_CPU_B} "
+        f"S={TRAIN_CPU_S}: loss rel err {loss_err:.3g}; worst gradient "
+        f"leaf {worst} {grad_err[worst]:.3g}; params after one "
+        f"lm_train_step: worst {worst_p} {param_err[worst_p]:.3g} "
+        f"(||card - cpu|| / ||cpu||, bar {TRAIN_CPU_TOL}; CPU "
+        f"value_and_grad {cpu_s:.2f} s)")
+    del cpu_params, stepped
+    torch.cuda.empty_cache()
+
+    # -- (c) resume: the 2-layer cut in bf16 through train_lm --------------
+    cut_id = f"{LM_ARCH}-2-layers"
+    base.register(dataclasses.replace(
+        spec, arch_id=cut_id,
+        make_config=lambda: dataclasses.replace(cfg, n_layers=2)))
+    saved, restored = {}, {}
+    manager = train_mod.CheckpointManager
+
+    class Recorded(manager):
+        """Keeps a card copy of each saved state and compares each
+        restored state with it."""
+
+        def save(self, step, state, extra=None, blocking=False):
+            saved[step] = [x.clone() for x in leaves(state)]
+            super().save(step, state, extra, blocking)
+
+        def restore(self, like, step=None):
+            state, at, extra = super().restore(like, step)
+            restored[at] = all(same_bits(a, b) for a, b in
+                               zip(leaves(state), saved[at]))
+            return state, at, extra
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    train_mod.CheckpointManager = Recorded
+    try:
+        run = dict(smoke=False, quiet=True, device="cuda")
+        t = time.perf_counter()
+        whole = train_mod.train_lm(cut_id, steps=RESUME_STEPS, **run)
+        part = train_mod.train_lm(cut_id, steps=2, ckpt_dir=tmp,
+                                  ckpt_every=2, **run)
+        save_s = time.perf_counter() - t
+        npz = os.path.join(tmp, "step_2", "arrays.npz")
+        with zipfile.ZipFile(npz) as z:
+            members = z.namelist()
+        require(members == CKPT_MEMBERS,
+                f"checkpoint members {members} are not the reference's "
+                f"{CKPT_MEMBERS}")
+        gb_disk = os.path.getsize(npz) / 1e9
+        t = time.perf_counter()
+        resumed = train_mod.train_lm(cut_id, steps=RESUME_STEPS,
+                                     ckpt_dir=tmp, ckpt_every=10 ** 9,
+                                     resume=True, **run)
+        resume_s = time.perf_counter() - t
+    finally:
+        train_mod.CheckpointManager = manager
+        shutil.rmtree(tmp, ignore_errors=True)
+        del base._REGISTRY[cut_id]
+    require(resumed.restored_from == 2 and restored == {2: True},
+            f"the restored state is not the saved one bit for bit "
+            f"(restored from {resumed.restored_from}: {restored})")
+    require(np.allclose(part.losses, whole.losses[:2], rtol=1e-4, atol=0),
+            "the 2-step run's losses differ from the whole run's")
+    require(np.allclose(resumed.losses, whole.losses[2:], rtol=1e-4,
+                        atol=0),
+            f"resumed losses {resumed.losses} != uninterrupted "
+            f"{whole.losses[2:]}")
+    log(f"[train] resume, 2 layers, bf16 (train_lm, B=8, S=64): "
+        f"{len(members)} npz members keyed as the reference's, "
+        f"{gb_disk:.2f} GB at step 2; restored bit for bit; losses "
+        f"{resumed.losses} == uninterrupted {whole.losses[2:]} (rtol 1e-4); "
+        f"whole + saving run {save_s:.2f} s, resumed run {resume_s:.2f} s")
+    return {"steps": steps, "prefill_launches": prefill_launches,
+            "train_launches": train_counts["flash_attention"],
+            "traced_busy_ms": busy_ms, "traced_wall_ms": wall_ms}
+
+
 def smoke_delta(g, seed: int):
     """A seeded GraphDelta of UPDATE_OPS inserts (absent pairs) and
     UPDATE_OPS deletes (present edges) of the graph g."""
@@ -2187,7 +2466,15 @@ def main() -> int:
                          [r["layer0_" + f] for r in moe.values()])
     phase_t = log_phase(11, phase_t)
 
-    # -- phase 12: the result lines -----------------------------------------
+    # -- phase 12: LM training ----------------------------------------------
+    train = phase_train(args.seed)
+    rows[3]["train"] = {"launches": train["train_launches"],
+                        "prefill_launches": train["prefill_launches"],
+                        "path": f"lm_train_step({LM_ARCH}, B={TRAIN_B}, "
+                                f"S=4096): the online scan"}
+    phase_t = log_phase(12, phase_t)
+
+    # -- phase 13: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

@@ -5,6 +5,7 @@ ported arch.
 registers the reference's five LM archs (three dense, the MoE
 moonshot-v1-16b-a3b and the MoE + MLA deepseek-v2-lite-16b) and
 ``nucleus`` (the paper's workload at SNAP scale, ``configs.nucleus``).
+Every LM arch serves (``launch.serve``) and trains (``launch.train``).
 The GNN and recsys archs are not yet ported.  Serving ``--arch nucleus``
 needs no arch config: ``launch.serve`` runs it.
 """

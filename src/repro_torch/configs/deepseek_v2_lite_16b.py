@@ -28,7 +28,7 @@ def make_smoke_config() -> TransformerConfig:
         n_kv_heads=4, d_ff=96, vocab=512,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=96, n_shared=1),
         mla=MLAConfig(kv_lora_rank=16, rope_head_dim=8),
-        dtype=torch.float32, attn_chunk=32)
+        dtype=torch.float32, attn_chunk=32, remat=False)
 
 
 SPEC = register(ArchSpec(

@@ -21,7 +21,8 @@ def make_config() -> TransformerConfig:
 def make_smoke_config() -> TransformerConfig:
     return TransformerConfig(
         name="minicpm-2b-smoke", n_layers=2, d_model=72, n_heads=6,
-        n_kv_heads=6, d_ff=180, vocab=512, dtype=torch.float32, attn_chunk=32)
+        n_kv_heads=6, d_ff=180, vocab=512, dtype=torch.float32, attn_chunk=32,
+        remat=False)
 
 
 SPEC = register(ArchSpec(

@@ -17,7 +17,8 @@ def make_config() -> TransformerConfig:
 def make_smoke_config() -> TransformerConfig:
     return TransformerConfig(
         name="minitron-4b-smoke", n_layers=2, d_model=48, n_heads=4,
-        n_kv_heads=2, d_ff=144, vocab=512, dtype=torch.float32, attn_chunk=32)
+        n_kv_heads=2, d_ff=144, vocab=512, dtype=torch.float32, attn_chunk=32,
+        remat=False)
 
 
 SPEC = register(ArchSpec(

@@ -25,7 +25,7 @@ def make_smoke_config() -> TransformerConfig:
         name="moonshot-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=4, d_ff=96, vocab=512,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=96, n_shared=1),
-        dtype=torch.float32, attn_chunk=32)
+        dtype=torch.float32, attn_chunk=32, remat=False)
 
 
 SPEC = register(ArchSpec(

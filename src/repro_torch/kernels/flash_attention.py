@@ -77,6 +77,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain version; CUDA tensors launch the kernel on the current stream
     (bf16 or float32, D in ``HEAD_DIMS``) or raise.  The output has q's
     strides, so a (B, S, H, D) tensor's transposed view comes back as one.
+    The kernel has no backward pass: on the card, with grad mode on and q,
+    k or v requiring grad, it raises rather than return an output that
+    autograd cannot differentiate (training attends through the model's
+    ``online_attention``).
     """
     _check_shapes(q, k, v)
     dev = kernel_device((q, k, v), "flash_attention")
@@ -84,6 +88,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention: the kernel has no backward "
+                           "pass; call it under torch.no_grad() or attend "
+                           "through transformer.online_attention")
     if q.dtype not in _IS_F32:
         raise TypeError(f"flash_attention: bf16 or float32, got {q.dtype}")
     B, H, Sq, D = (int(x) for x in q.shape)

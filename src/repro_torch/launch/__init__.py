@@ -1,2 +1,3 @@
-"""Launchers of the port (counterpart of ``repro.launch``): the LM serve
-steps (``steps``) and the serving driver (``serve``)."""
+"""Launchers of the port (counterpart of ``repro.launch``): the LM train
+and serve steps (``steps``), the training loop (``train``), the serving
+lanes (``serve``) and the device mesh (``mesh``)."""

@@ -60,9 +60,9 @@ def serve_lm(arch_id: str, n_requests: int = 16, batch_slots: int = 4,
     """
     if arch_id in NOT_PORTED:
         raise NotImplementedError(f"--arch {arch_id} is not yet ported to "
-                                  f"repro_torch (nor are training and the "
-                                  f"GNN archs); it serves the five LM "
-                                  f"archs and --arch nucleus")
+                                  f"repro_torch (nor are the GNN archs); it "
+                                  f"serves the five LM archs and --arch "
+                                  f"nucleus")
     if arch_id == "nucleus":
         raise ValueError("--arch nucleus is no LM: serve it with "
                          "serve_nucleus, serve_nucleus_warm_pool or "

@@ -1,0 +1,144 @@
+"""End-to-end training loop (counterpart of ``repro.launch.train``).
+
+Data pipeline -> train step -> checkpoint/restore -> straggler and
+preemption handling, on the card unless ``device="cpu"`` (``--device
+cpu``).  ``python -m repro_torch.launch.train --arch minicpm-2b --device
+cpu --steps 30`` trains the smoke config on the CPU; every LM arch of the
+reference trains, at its smoke config by default (``--full`` for the
+published one).  The parameters come from ``transformer.init_params``'s
+seeded generator; the reference's sharding rules are not yet ported, so a
+run uses one device.  ``--arch din`` is not yet ported and raises.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..configs import get_arch
+from ..data import TokenStream, TokenStreamConfig
+from ..device import DeviceLike, resolve_device
+from ..distributed import HeartbeatLog, PreemptionGuard, StragglerMonitor
+from ..models import transformer as T
+from ..optim import adamw
+from . import steps as S
+
+
+@dataclasses.dataclass
+class TrainRun:
+    losses: list
+    steps_done: int
+    restored_from: Optional[int]
+
+
+def _check_lm(arch_id: str) -> None:
+    if arch_id == "din":
+        raise NotImplementedError("--arch din is not yet ported to "
+                                  "repro_torch: it comes with the din slice "
+                                  "(its model, RecsysStream training and "
+                                  "train_din)")
+    if get_arch(arch_id).family != "lm":
+        raise ValueError(f"--arch {arch_id} is no LM: train_lm trains the "
+                         f"LM archs")
+
+
+def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
+             ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+             batch_override: Optional[int] = None,
+             seq_override: Optional[int] = None,
+             schedule: str = "cosine",
+             resume: bool = False, log_every: int = 20,
+             microbatches: int = 1, quiet: bool = False,
+             device: DeviceLike = None) -> TrainRun:
+    """Train ``arch_id`` for ``steps`` steps from seeded parameters;
+    with ``resume`` and a checkpoint in ``ckpt_dir``, from its step on."""
+    _check_lm(arch_id)
+    dev = resolve_device(device)
+    spec = get_arch(arch_id)
+    cfg = spec.make_smoke_config() if smoke else spec.make_config()
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=steps,
+                                schedule=schedule)
+    B = batch_override or 8
+    Sq = seq_override or 64
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=Sq,
+                                           global_batch=B))
+    params = T.init_params(cfg, device=dev)
+    opt_state = adamw.init_state(params)
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    restored_from = None
+    if mgr and resume and mgr.latest_step() is not None:
+        (params, opt_state), start_step, _ = mgr.restore((params, opt_state))
+        restored_from = start_step
+
+    monitor = StragglerMonitor()
+    guard = PreemptionGuard()
+    log = HeartbeatLog(f"{ckpt_dir}/heartbeat.jsonl") if ckpt_dir else None
+    losses = []
+    step = start_step
+    try:
+        for step in range(start_step, steps):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in stream.batch(step).items()}
+            monitor.start_step()
+            if microbatches > 1:
+                params, opt_state, metrics = S.lm_train_step_microbatched(
+                    params, opt_state, batch, cfg, opt_cfg, microbatches)
+            else:
+                params, opt_state, metrics = S.lm_train_step(
+                    params, opt_state, batch, cfg, opt_cfg)
+            loss = float(metrics["loss"])
+            straggle = monitor.end_step()
+            losses.append(loss)
+            if log:
+                log.event("step", step=step, loss=loss)
+                if straggle:
+                    log.event("straggler", step=straggle[0],
+                              duration=straggle[1], median=straggle[2])
+            if not quiet and step % log_every == 0:
+                print(f"step {step:5d}  loss {loss:.4f}  "
+                      f"lr {float(metrics['lr']):.2e}", flush=True)
+            if mgr and (step + 1) % ckpt_every == 0:
+                mgr.save(step + 1, (params, opt_state))
+            if guard.should_stop:
+                if mgr:
+                    mgr.save(step + 1, (params, opt_state), blocking=True)
+                break
+    finally:
+        if mgr:
+            mgr.wait()
+        guard.restore()
+        if log:
+            log.close()
+    return TrainRun(losses=losses, steps_done=step + 1 - start_step,
+                    restored_from=restored_from)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minicpm-2b")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--schedule", default="cosine",
+                    choices=["constant", "cosine", "wsd"])
+    ap.add_argument("--device", default=None,
+                    help="cpu runs the plain path; default: the card")
+    args = ap.parse_args()
+    run = train_lm(args.arch, steps=args.steps, smoke=args.smoke,
+                   ckpt_dir=args.ckpt_dir, resume=args.resume,
+                   schedule=args.schedule, microbatches=args.microbatches,
+                   device=args.device)
+    print(f"done: {run.steps_done} steps, "
+          f"loss {run.losses[0]:.4f} -> {run.losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

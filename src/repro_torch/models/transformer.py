@@ -6,7 +6,7 @@ every per-layer array is stacked on a leading ``n_layers`` axis, so the
 reference's pytree converts leaf for leaf (``params_from_reference``).  The
 model keeps the reference's ``(B, S, H, D)`` activations.
 
-Attention has two routes, as in the reference's own test
+Attention has three routes, as in the reference's own test
 ``tests/test_kernels.py::test_flash_matches_model_online_attention``:
 
 * a forward pass with no cache (``forward``, prefill) has positions
@@ -14,6 +14,10 @@ Attention has two routes, as in the reference's own test
   scan computes exactly the flash-attention function, so ``_attn`` calls
   ``kernels.ops.attention`` (causal): the hand-written kernel on the card,
   its plain twin on the CPU;
+* training (``loss_fn``, ``train=True`` down to ``_attn``) attends through
+  ``online_attention``'s scan with chunk ``attn_chunk`` on every device,
+  as the reference's ``loss_fn`` does: the flash kernel has no backward
+  pass (its wrapper raises under autograd on the card);
 * a step against a KV cache (``decode_step``) keeps ``online_attention``,
   the torch counterpart of the reference's jnp scan, with its position
   offsets and ``k_valid_len`` mask.
@@ -25,10 +29,15 @@ sort-based capacity dispatch: its drops are the reference's drops.  The
 expert products are batched matmuls over the ``(E, cap, d)`` buffer (the
 reference computes them outside any Pallas kernel too).
 
-Not yet ported: ``loss_fn`` and training.  ``dtype`` is a torch dtype.  The
-reference's sharding and cost hints (``cost_unroll``, ``moe_ep_data``,
-``act_specs``) and ``remat`` (recompute in the backward pass) are dropped:
-the port runs on one device and serves without a backward pass.
+``loss_fn`` is the mean next-token cross entropy over float32 logits;
+with ``remat`` each layer of the training route runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so the
+backward pass recomputes a layer's activations instead of keeping them.
+Every stacked leaf is unbound once per pass, so the backward pass stacks
+each leaf's layer gradients once (indexing ``v[i]`` per layer would make
+a zero-filled gradient of the whole stack per layer).  ``dtype`` is a
+torch dtype.  The reference's sharding and cost hints (``cost_unroll``,
+``moe_ep_data``, ``act_specs``) are dropped: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -38,9 +47,11 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
+from ..optim.adamw import AdamWState
 
 NEG = -1e30  # finite -inf sentinel of the online-softmax scan
 
@@ -76,6 +87,7 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024     # KV chunk of online_attention's scan
+    remat: bool = True         # recompute each layer in the backward pass
     tie_embeddings: bool = False
 
     @property
@@ -304,15 +316,16 @@ def _rope_dim(cfg: TransformerConfig) -> int:
 
 
 def _attn(x, params, cfg: TransformerConfig, rope, cache=None,
-          cache_len: Optional[int] = None, biases=None):
+          cache_len: Optional[int] = None, biases=None, train: bool = False):
     """Self-attention (GQA/MHA or MLA). Returns (out, new_cache).
 
     ``rope`` is ``rope_angles`` of the positions over ``_rope_dim(cfg)``.
     With a cache, the step's rows (K/V, or MLA's latent and rope key) are
     written into it in place at ``cache_len`` (the reference returns an
     updated copy) and the step attends over the whole cache through
-    ``online_attention``'s scan with its chunk ``biases``.  Without one,
-    the flash-attention kernel computes the same function.
+    ``online_attention``'s scan with its chunk ``biases``.  ``train``
+    (no cache) takes the same scan, which autograd differentiates.
+    Otherwise the flash-attention kernel computes the same function.
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -340,7 +353,7 @@ def _attn(x, params, cfg: TransformerConfig, rope, cache=None,
             k_c[:, cache_len:cache_len + S] = k
             v_c[:, cache_len:cache_len + S] = v
             k, v = k_c, v_c
-    if cache is None:
+    if cache is None and not train:
         # (B, S, H, D) viewed as (B, H, S, D): the kernel reads and writes
         # through strides, so neither transpose copies
         out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -352,9 +365,9 @@ def _attn(x, params, cfg: TransformerConfig, rope, cache=None,
 
 
 def _layer(x, params, cfg: TransformerConfig, rope, cache=None,
-           cache_len: Optional[int] = None, biases=None):
+           cache_len: Optional[int] = None, biases=None, train: bool = False):
     h, new_cache = _attn(rmsnorm(x, params["ln1"], cfg.norm_eps), params,
-                         cfg, rope, cache, cache_len, biases)
+                         cfg, rope, cache, cache_len, biases, train)
     x = x + h
     z = rmsnorm(x, params["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
@@ -398,7 +411,7 @@ def init_params(cfg: TransformerConfig,
 
     ``generator`` (default: seed 0 on the target device) draws the normal
     samples; it does not reproduce ``jax.random``'s numbers.  Every LM arch
-    of the reference is served; not yet ported are ``din``, training and
+    of the reference is served and trained; not yet ported are ``din`` and
     the GNN archs.
     """
     dev = resolve_device(device)
@@ -471,23 +484,56 @@ def params_from_reference(np_params: Dict[str, Any], cfg: TransformerConfig,
     return conv(np_params)
 
 
+def opt_state_from_reference(np_state: Any, like: Dict[str, Any]
+                             ) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves, e.g. from
+    ``jax.device_get``) as the port's: the int32 step and the float32
+    moments on the devices of ``like``'s parameters."""
+    dev = like["embed"].device
+
+    def conv(a, ref):
+        if isinstance(a, dict):
+            return {k: conv(v, ref[k]) for k, v in a.items()}
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(ref.device)
+
+    step = torch.tensor(int(np.asarray(np_state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step, mu=conv(np_state.mu, like),
+                      nu=conv(np_state.nu, like))
+
+
 # ---------------------------------------------------------------------------
-# forward / decode
+# forward / loss / decode
 # ---------------------------------------------------------------------------
 
-def _layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layers(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's parameters: every stacked leaf unbound once."""
+    cut = {k: torch.unbind(v) for k, v in params["layers"].items()}
+    return [dict(zip(cut, layer)) for layer in zip(*cut.values())]
 
 
 def trunk(params: Dict[str, Any], tokens: torch.Tensor,
-          cfg: TransformerConfig) -> torch.Tensor:
-    """tokens (B, S) -> the last layer's output (B, S, d_model)."""
+          cfg: TransformerConfig, train: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> the last layer's output (B, S, d_model).
+
+    ``train`` attends through ``online_attention``'s scan (differentiable)
+    instead of the flash kernel, and with ``cfg.remat`` recomputes each
+    layer in the backward pass.
+    """
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = rope_angles(positions, _rope_dim(cfg), cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params, i), cfg, rope)
+    biases = None
+    if train:
+        every = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        biases = _chunk_biases(positions, every, S, True, cfg.attn_chunk)
+    for lp in _layers(params):
+        if train and cfg.remat:
+            x, _ = checkpoint(_layer, x, lp, cfg, rope, biases=biases,
+                              train=True, use_reentrant=False)
+        else:
+            x, _ = _layer(x, lp, cfg, rope, biases=biases, train=train)
     return x
 
 
@@ -503,6 +549,17 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, vocab)."""
     return head(params, trunk(params, tokens, cfg), cfg)
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
+            labels: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Mean of ``logsumexp(logits) - logits[label]`` over float32 logits,
+    on the training route (``trunk(train=True)``); differentiable."""
+    logits = head(params, trunk(params, tokens, cfg, train=True),
+                  cfg).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -545,7 +602,7 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor, cache: Any,
     rope = rope_angles(positions, _rope_dim(cfg), cfg.rope_theta)
     valid = torch.full((B,), off + S, dtype=torch.int32, device=x.device)
     biases = _chunk_biases(positions, valid, Sc, True, cfg.attn_chunk)
-    for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params, i), cfg, rope,
-                      cache=(c_a[i], c_b[i]), cache_len=off, biases=biases)
+    for i, lp in enumerate(_layers(params)):
+        x, _ = _layer(x, lp, cfg, rope, cache=(c_a[i], c_b[i]),
+                      cache_len=off, biases=biases)
     return head(params, x, cfg), cache, off + S

@@ -554,3 +554,51 @@ def test_moe_smoke_on_card(cuda_device):
             np.testing.assert_array_equal(got[r], want[r])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(cuda_device):
+    """minicpm-2b's smoke config trains on the card as on the CPU: one
+    ``lm_train_step`` (the training route: the online scan, no flash
+    launch) gives the CPU's loss, grad_norm and params (float32, TF32
+    off; rtol 1e-4, atol 1e-5: Adam's step at near-zero gradients moves
+    with their rounding).  The flash kernel refuses to run under autograd
+    (its output would have no gradient)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_arch("minicpm-2b").make_smoke_config()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    toks = torch.randint(0, cfg.vocab, (2, 41),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda_device):
+            params = T.init_params(cfg, generator=torch.Generator()
+                                   .manual_seed(0), device="cpu")
+            params = tree_map(lambda p: p.to(dev), params)
+            before = launch_counts["flash_attention"]
+            params, _, m = lm_train_step(
+                params, adamw.init_state(params),
+                {k: v.to(dev) for k, v in batch.items()}, cfg, opt)
+            assert launch_counts["flash_attention"] == before
+            out[str(dev)] = ([p.cpu() for p in leaves(params)],
+                             {k: float(v) for k, v in m.items()})
+        (cpu_p, cpu_m), (card_p, card_m) = out["cpu"], out[str(cuda_device)]
+        for k in cpu_m:
+            assert card_m[k] == pytest.approx(cpu_m[k], rel=1e-4), k
+        for a, b in zip(card_p, cpu_p):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    q = torch.randn((1, 2, 64, 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, q, q, True)
+    with torch.no_grad():
+        assert flash_attention(q, q, q, True).shape == q.shape

@@ -56,7 +56,9 @@ def test_port_sources_found():
                 "serve/httpd.py", "core/distributed.py", "launch/mesh.py",
                 "configs/nucleus.py", "configs/moonshot_v1_16b_a3b.py",
                 "configs/deepseek_v2_lite_16b.py", "distbuild/builder.py",
-                "distbuild/exchange.py", "distbuild/planner.py"):
+                "distbuild/exchange.py", "distbuild/planner.py",
+                "optim/adamw.py", "checkpoint/manager.py", "data/pipeline.py",
+                "distributed/runtime.py", "launch/train.py", "tree.py"):
         assert mod in rel, mod
 
 
@@ -120,7 +122,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.distributed, repro_torch.launch.mesh, "
             "repro_torch.configs.nucleus, repro_torch.distbuild, "
             "repro_torch.configs.moonshot_v1_16b_a3b, "
-            "repro_torch.configs.deepseek_v2_lite_16b; "
+            "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.optim, "
+            "repro_torch.checkpoint, repro_torch.data, "
+            "repro_torch.distributed, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")

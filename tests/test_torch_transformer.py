@@ -28,9 +28,8 @@ torch.set_num_threads(1)
 
 ARCHS = ("minicpm-2b", "minitron-4b", "stablelm-12b")
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-lite-16b")
-# the reference's sharding/cost hints and remat: no counterpart on one
-# device without a backward pass
-REFERENCE_ONLY = ("remat", "cost_unroll", "moe_ep_data", "act_specs")
+# the reference's sharding/cost hints: no counterpart on one device
+REFERENCE_ONLY = ("cost_unroll", "moe_ep_data", "act_specs")
 _JDT = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
