@@ -11,9 +11,11 @@ kernel and a decode server, then the nucleus server (a warm Session,
 exact updates, a multi-tenant router and its HTTP surface), the
 sharded lane (the sharded build, the peel over a mesh of slabs, its exact
 compressed reduction and a sharded pool), MoE and MLA inference of
-moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, and last LM
-training of minicpm-2b at full width (AdamW steps, checkpoints).  Every kernel
-of those paths is checked against its plain-torch version on the card.
+moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, LM training
+of minicpm-2b at full width (AdamW steps, checkpoints), and last the recsys
+(din) and GNN (gin-tu, egnn, dimenet, mace) families at their published
+widths, which run no kernel.  Every kernel of those paths is checked
+against its plain-torch version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
   1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc),
@@ -113,7 +115,22 @@ Phases (any failure ends the run with a non-zero exit):
      cut in bf16 saving at step 2 and a run resumed from it (bit for bit,
      the reference's checkpoint keys, losses equal to an uninterrupted
      run's);
- 13. a JSON line of per-kernel numbers, the card's name and power limit,
+ 13. the recsys and GNN families at their published widths, no kernel
+     launched (none of the four is on their path): din (``phase_din``)
+     trains through ``train_din`` at train_batch's 65,536 rows (each step
+     timed, every leaf changed), serves serve_p99's 512 and serve_bulk's
+     262,144 rows through ``serve_din``, scores retrieval_cand's 1,000,448
+     padded candidates in chunks (equal to ``forward``), and equals the
+     CPU on a 512-row batch; gin-tu, egnn, dimenet and mace
+     (``phase_gnn``) take two ``gnn_train_step``s on each of the four
+     GNN cells (molecule, full_graph_sm, minibatch_lg from
+     ``GraphMinibatchStream`` over an uncut reddit-sized base graph,
+     ogb_products uncut where a probe reckons it fits, else on the
+     largest cut that does), with finite losses, no weight decay, and
+     a zero gradient exactly on the leaves the loss cannot reach
+     (``gnn_unreached``), every other leaf changed; the second step is
+     timed; and equal the CPU on the molecule cell;
+ 14. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -1499,7 +1516,7 @@ def phase_train(seed: int):
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import (lm_prefill_step, lm_train_step,
                                           lm_train_step_microbatched,
-                                          lm_value_and_grad)
+                                          value_and_grad)
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.tree import flatten_with_paths, leaves
@@ -1611,11 +1628,12 @@ def phase_train(seed: int):
     cb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     gb = {k: v.cuda() for k, v in cb.items()}
     t = time.perf_counter()
-    cpu_loss, cpu_grads = lm_value_and_grad(cpu_params, cb["tokens"],
-                                            cb["labels"], cfg2)
+    cpu_loss, cpu_grads = value_and_grad(T.loss_fn, cpu_params,
+                                         cb["tokens"], cb["labels"], cfg2)
     cpu_s = time.perf_counter() - t
-    card_loss, card_grads = lm_value_and_grad(
-        to_device(cpu_params, "cuda"), gb["tokens"], gb["labels"], cfg2)
+    card_loss, card_grads = value_and_grad(
+        T.loss_fn, to_device(cpu_params, "cuda"), gb["tokens"],
+        gb["labels"], cfg2)
     loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
     names = [k for k, _ in flatten_with_paths(cpu_params)]
     grad_err = {k: rel_norm_err(g.cpu(), c) for k, g, c in
@@ -2119,6 +2137,412 @@ def phase_sharded(g, main, eager_digest: str, eager_build_s: float,
                             "'cuda:0',) * 4)))"}
 
 
+# phase 13: the recsys (din) and GNN families at their published widths
+DIN_TRAIN_STEPS = 3      # train_din steps at train_batch's 65,536 rows
+DIN_SERVE_BATCHES = {"serve_p99": 8, "serve_bulk": 2}  # serve_din batches
+DIN_CPU_ROWS = 512       # card == CPU: forward scores and loss
+DIN_CPU_TOL = 1e-4       # ||card - cpu|| / ||cpu||, f32
+GNN_ARCHS = ("gin-tu", "egnn", "dimenet", "mace")
+GNN_PROBES = (1 / 1024, 1 / 512)  # ogb_products: two probes' shares of
+                         # its nodes and edges, for a line through their peaks
+GNN_BUDGET = 64e9        # bytes a train step may peak at on the 80 GB card
+GNN_CPU_TOL = 1e-3       # card == CPU per gradient leaf, f32, atomics
+
+
+def timed_call(fn, *args):
+    """(fn(*args), synced seconds, peak GB of the call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_din(seed: int):
+    """Phase 13 (a): din at its published width (10^6/10^4/10^5 x 18
+    tables, seq 100).  train_batch: DIN_TRAIN_STEPS ``train_din`` steps of
+    65,536 rows, each ``din_train_step`` timed (finite losses, every leaf
+    changed by the first step); serve_p99 and serve_bulk through
+    ``serve_din`` and one timed ``din_serve_step`` each; retrieval_cand:
+    ``din_retrieval_step`` over 1,000,448 padded candidates (chunked),
+    its first DIN_CPU_ROWS scores equal to ``forward``'s; card == CPU on
+    a DIN_CPU_ROWS-row batch (scores and loss)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.din import n_candidates_padded
+    from repro_torch.data import RecsysStream, RecsysStreamConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import din as D
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    spec = get_arch("din")
+    cfg = spec.make_config()
+    out = {}
+
+    def stream(rows, s=seed):
+        return RecsysStream(RecsysStreamConfig(
+            n_items=cfg.n_items, n_cates=cfg.n_cates,
+            n_users=cfg.n_user_feats, seq_len=cfg.seq_len, batch=rows,
+            seed=s))
+
+    # -- train_batch: train_din, its steps timed by a wrapper ---------------
+    B = spec.shape("train_batch").dims["batch"]
+    steps = []
+    plain_step = S.din_train_step
+
+    def step(params, opt_state, b, c, opt):
+        first = ([(k, p.clone()) for k, p in flatten_with_paths(params)]
+                 if not steps else None)
+        (params, opt_state, m), s, peak = timed_call(
+            plain_step, params, opt_state, b, c, opt)
+        m = {k: float(v) for k, v in m.items()}
+        steps.append({"s": s, "rows_s": B / s, "peak_gb": peak, **m})
+        log(f"[din] train_batch step {len(steps) - 1} (B={B}): {s:.3f} s, "
+            f"{B / s:.0f} rows/s, loss {m['loss']:.5f}, grad_norm "
+            f"{m['grad_norm']:.4g}, peak {peak:.2f} GB")
+        if first is not None:
+            now = dict(flatten_with_paths(params))
+            same = [k for k, p in first if torch.equal(now[k], p)]
+            require(not same, f"din leaves unchanged by step 0: {same}")
+        return params, opt_state, m
+    S.din_train_step = step
+    try:
+        t = time.perf_counter()
+        run = train_mod.train_din(steps=DIN_TRAIN_STEPS, smoke=False,
+                                  batch=B, quiet=True, device=None)
+        wall = time.perf_counter() - t
+    finally:
+        S.din_train_step = plain_step
+    require(len(steps) == DIN_TRAIN_STEPS and np.isfinite(run.losses).all(),
+            f"train_din: losses {run.losses}")
+    log(f"[din] train_din(smoke=False, batch={B}): {DIN_TRAIN_STEPS} steps "
+        f"in {wall:.2f} s with the host's RecsysStream batches; losses "
+        f"{run.losses}")
+    out["train_batch"] = steps
+
+    # -- serve_p99, serve_bulk: serve_din, and one timed serve step ---------
+    params = D.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    for name, n_batches in DIN_SERVE_BATCHES.items():
+        rows = spec.shape(name).dims["batch"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores = serve_mod.serve_din(n_batches=n_batches, batch=rows,
+                                     smoke=False, quiet=True)
+        wall = time.perf_counter() - t
+        require(scores.shape == (n_batches * rows,)
+                and np.isfinite(scores).all()
+                and ((scores >= 0) & (scores <= 1)).all(),
+                f"serve_din {name}: scores out of range")
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in stream(rows).batch(0).items() if k != "label"}
+        got, s, peak = timed_call(S.din_serve_step, params, b, cfg)
+        log(f"[din] {name} (B={rows}): serve_din {n_batches} batches "
+            f"{wall:.2f} s ({n_batches * rows / wall:.0f} req/s with the "
+            f"host's batches); din_serve_step {s * 1e3:.2f} ms "
+            f"({rows / s:.0f} rows/s), peak {peak:.2f} GB")
+        out[name] = {"serve_din_s": wall, "step_s": s, "rows_s": rows / s,
+                     "peak_gb": peak}
+        del b, got
+
+    # -- retrieval_cand: one user against 1,000,448 candidates -------------
+    NC = n_candidates_padded(spec.shape("retrieval_cand"))
+    rng = np.random.default_rng(seed + 13)
+    hist = rng.integers(0, cfg.n_items, cfg.seq_len).astype(np.int32)
+    hist[cfg.seq_len * 3 // 4:] = -1
+    cands = rng.integers(0, cfg.n_items, NC).astype(np.int32)
+    rb = {"hist_items": hist,
+          "hist_cates": np.where(hist >= 0, hist % cfg.n_cates,
+                                 -1).astype(np.int32),
+          "user_id": np.asarray(rng.integers(0, cfg.n_user_feats),
+                                np.int32),
+          "cand_items": cands, "cand_cates": (cands % cfg.n_cates).astype(
+              np.int32)}
+    rb = {k: torch.from_numpy(v).cuda() for k, v in rb.items()}
+    scores, s, peak = timed_call(S.din_retrieval_step, params, rb, cfg)
+    require(scores.shape == (NC,) and bool(torch.isfinite(scores).all()),
+            "retrieval scores")
+    k = DIN_CPU_ROWS
+    fb = {"hist_items": rb["hist_items"].expand(k, -1),
+          "hist_cates": rb["hist_cates"].expand(k, -1),
+          "cand_item": rb["cand_items"][:k], "cand_cate": rb["cand_cates"][:k],
+          "user_id": rb["user_id"].expand(k)}
+    fwd_err = rel_norm_err(scores[:k], D.forward(params, fb, cfg))
+    require(fwd_err <= DIN_CPU_TOL,
+            f"retrieval scores vs forward: {fwd_err:.3g}")
+    log(f"[din] retrieval_cand ({NC} candidates, chunks of "
+        f"{D.RETRIEVAL_CHUNK}): {s:.3f} s ({NC / s:.0f} candidates/s), "
+        f"peak {peak:.2f} GB; first {k} scores vs forward {fwd_err:.3g}")
+    out["retrieval_cand"] = {"s": s, "rows_s": NC / s, "peak_gb": peak,
+                             "vs_forward": fwd_err}
+    del scores, rb, fb
+
+    # -- card == CPU at full width ------------------------------------------
+    b = stream(DIN_CPU_ROWS, seed + 1).batch(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else tree_map(lambda x: x.cpu(), params)
+        bt = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        res[dev] = (D.forward(p, bt, cfg).cpu(),
+                    D.loss_fn(p, bt, bt["label"], cfg).cpu())
+    errs = [rel_norm_err(g, w) for g, w in zip(res["cuda"], res["cpu"])]
+    require(max(errs) <= DIN_CPU_TOL, f"din card vs CPU: {errs}")
+    log(f"[din] card == CPU at full width, {DIN_CPU_ROWS} rows (f32, TF32 "
+        f"off): scores {errs[0]:.3g}, loss {errs[1]:.3g} "
+        f"(||d|| / ||cpu||, bar {DIN_CPU_TOL})")
+    out["cpu_err"] = max(errs)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_cell_batch(arch, cell, seed: int, frac: float = 1.0, block=None):
+    """(batch dict on the card, n_graphs, node_level, E) of one GNN cell:
+    seeded synthetic arrays at the cell's dims (nodes and edges times
+    ``frac`` for a cut), ``block`` the minibatch_lg stream's batch."""
+    from repro_torch.configs.gnn_shapes import (is_node_level, needs_pos,
+                                                needs_triplets)
+    from repro_torch.data import synthetic_molecules
+    from repro_torch.models.gnn_common import build_triplets
+
+    d = cell.dims
+    node_level = is_node_level(cell)
+    if cell.name == "molecule":
+        m = synthetic_molecules(d["batch"], d["n_nodes"], d["n_edges"],
+                                d["d_feat"], seed=seed,
+                                triplet_cap=d["triplet_cap"])
+        N, E = m["nodes"].shape[0], m["edge_src"].shape[0]
+        b = {"nodes": m["nodes"], "edge_src": m["edge_src"],
+             "edge_dst": m["edge_dst"], "node_mask": np.ones(N, bool),
+             "edge_mask": np.ones(E, bool), "graph_id": m["graph_id"],
+             "pos": m["pos"], "energy": m["energy"][:, None]}
+        b["triplet_kj"], b["triplet_ji"], b["triplet_mask"] = m["triplets"]
+        n_graphs = m["n_graphs"]
+    elif block is not None:
+        b = dict(block)
+        N = b["nodes"].shape[0]
+        b["graph_id"] = np.arange(N, dtype=np.int32)
+        n_graphs = N
+    else:
+        N = max(2, int(round(d["n_nodes"] * frac)))
+        E = max(1, int(round(d["n_edges"] * frac)))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        b = {"nodes": torch.randn((N, d["d_feat"]), generator=g,
+                                  device="cuda"),
+             "edge_src": torch.randint(0, N, (E,), generator=g,
+                                       device="cuda", dtype=torch.int32),
+             "edge_dst": torch.randint(0, N, (E,), generator=g,
+                                       device="cuda", dtype=torch.int32),
+             "node_mask": torch.ones(N, dtype=torch.bool, device="cuda"),
+             "edge_mask": torch.ones(E, dtype=torch.bool, device="cuda"),
+             "graph_id": torch.arange(N, dtype=torch.int32, device="cuda"),
+             "pos": torch.randn((N, 3), generator=g, device="cuda"),
+             "labels": torch.randint(0, d["n_classes"], (N,), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "label_mask": torch.ones(N, device="cuda")}
+        n_graphs = N
+    if needs_triplets(arch) and "triplet_kj" not in b:
+        src, dst, em = (np.asarray(b[k].cpu() if torch.is_tensor(b[k])
+                                   else b[k])
+                        for k in ("edge_src", "edge_dst", "edge_mask"))
+        kj, ji, _ = build_triplets(src, dst, N, cap_per_edge=d["triplet_cap"])
+        b.update(triplet_kj=kj, triplet_ji=ji, triplet_mask=em[kj] & em[ji])
+    if not needs_pos(arch):
+        b.pop("pos", None)
+    if not needs_triplets(arch):
+        for k in ("triplet_kj", "triplet_ji", "triplet_mask"):
+            b.pop(k, None)
+    b = {k: (v if torch.is_tensor(v) else torch.from_numpy(
+        np.asarray(v))).cuda() for k, v in b.items()}
+    return b, n_graphs, node_level, int(b["edge_src"].shape[0])
+
+
+def gnn_unreached(arch: str, cfg) -> list:
+    """Key paths of the parameters ``gnn_loss`` cannot reach, so their
+    gradient is zero, in the reference as in the port: egnn's last
+    coordinate head (no loss reads the coordinates); mace's first layer's
+    vector and tensor mixes (they act on the zero initial v and t) and
+    its last layer's v and t updates with their gate and ACE weights (no
+    loss reads the last v and t).  ``tests/test_torch_gnn.py`` holds this
+    list to ``jax.grad``'s zero leaves at the smoke configs."""
+    if arch == "egnn":
+        last = f"['layers']/[{cfg.n_layers - 1}]"
+        return [f"{last}/['phi_x']/['{k}']" for k in ("b0", "b1", "w0", "w1")]
+    if arch == "mace":
+        last = f"['layers']/[{cfg.n_layers - 1}]"
+        keys = ([f"['layers']/[0]/['{k}']"
+                 for k in ("mix_t", "mix_v", "res_t", "res_v")] +
+                [f"{last}/['{k}']" for k in
+                 ("b1", "b2", "res_t", "res_v", "upd_t", "upd_v")] +
+                [f"{last}/['gate']/['{k}']" for k in ("b0", "w0")])
+        return sorted(set(keys))
+    return []
+
+
+def gnn_step(arch, cfg, b, n_graphs, node_level, seed: int, what: str):
+    """Two ``gnn_train_step``s from seeded parameters, with no weight
+    decay so that a leaf moves only by its gradient.  The first (set-up
+    included) must give exactly ``gnn_unreached``'s leaves a zero
+    gradient (moment mu all zero) and leave them unchanged, and change
+    every other leaf; the second is the warm step that is timed.  Both
+    losses finite.  Returns the record."""
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_paths
+
+    params = S._GNN[arch].init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                            weight_decay=0.0)
+    first = [(k, p.clone()) for k, p in flatten_with_paths(params)]
+    state = adamw.init_state(params)
+    args = (b, cfg, arch, n_graphs, node_level, opt)
+    (params, state, m), s0, peak0 = timed_call(S.gnn_train_step, params,
+                                               state, *args)
+    now = dict(flatten_with_paths(params))
+    zero = sorted(k for k, mu in flatten_with_paths(state.mu)
+                  if not bool(mu.any()))
+    same = sorted(k for k, p in first if torch.equal(now[k], p))
+    want = gnn_unreached(arch, cfg)
+    require(zero == want and same == want,
+            f"{what}: zero-gradient leaves {zero} and unchanged leaves "
+            f"{same}, where the loss cannot reach {want}")
+    del first, now
+    (params, state, m2), s, peak = timed_call(S.gnn_train_step, params,
+                                              state, *args)
+    losses = [float(m["loss"]), float(m2["loss"])]
+    norms = [float(m["grad_norm"]), float(m2["grad_norm"])]
+    require(all(map(math.isfinite, losses + norms)),
+            f"{what}: losses {losses}, grad_norms {norms}")
+    return {"s": s, "first_s": s0, "peak_gb": max(peak0, peak),
+            "loss": losses[0], "unreached": want}
+
+
+def phase_gnn(seed: int):
+    """Phase 13 (b): gin-tu, egnn, dimenet and mace at their published
+    widths (``cfg_for_cell``: the cell's d_in and classes) on the four
+    cells, two ``gnn_train_step``s each (``gnn_step``): molecule (128 molecules of
+    ``synthetic_molecules``, triplet cap 8), full_graph_sm (cora's 2,708
+    nodes, 10,556 edges, 1,433 features), minibatch_lg (a 1,024-seed 15-10
+    block of ``GraphMinibatchStream`` over a random base graph of
+    reddit's 232,965 vertices and 114,615,892 edges, uncut) and ogb_products (2,449,029 nodes,
+    61,859,140 edges): two probes at GNN_PROBES of its nodes and edges
+    reckon the full cell's peak along a line, and the step runs on the
+    largest cut under GNN_BUDGET (uncut where it fits).  Then card == CPU per arch on the
+    molecule cell (loss and every gradient leaf)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_shapes import cfg_for_cell
+    from repro_torch.data import GraphMinibatchStream
+    from repro_torch.graph import make_graph
+    from repro_torch.launch import steps as S
+    from repro_torch.tree import tree_map
+
+    cells = {c.name: c for c in get_arch(GNN_ARCHS[0]).shapes}
+    out = {a: {} for a in GNN_ARCHS}
+
+    # minibatch_lg's block: one stream batch over the uncut base graph
+    d = cells["minibatch_lg"].dims
+    t = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    base = make_graph(d["base_nodes"], rng.integers(
+        0, d["base_nodes"], (d["base_edges"], 2)), device="cuda")
+    t_graph = time.perf_counter() - t
+    stream = GraphMinibatchStream(base, fanouts=list(d["fanout"]),
+                                  batch_nodes=d["batch_nodes"],
+                                  d_feat=d["d_feat"],
+                                  n_classes=d["n_classes"], seed=seed,
+                                  with_pos=True)
+    t_csr = time.perf_counter() - t - t_graph
+    block = stream.batch(0)
+    live = (int(block["node_mask"].sum()), int(block["edge_mask"].sum()))
+    log(f"[gnn] minibatch_lg base graph: {d['base_nodes']} vertices, "
+        f"{base.m} edges after make_graph's dedup of {d['base_edges']} "
+        f"drawn, uncut ({t_graph:.2f} s to draw and build, "
+        f"{t_csr:.2f} s for the sampler's CSR); block of {live[0]} "
+        f"live nodes / {live[1]} live edges in the padded "
+        f"{stream.cap_nodes} x {stream.cap_edges}; "
+        f"{time.perf_counter() - t:.2f} s in all")
+    del base, stream
+
+    for arch in GNN_ARCHS:
+        spec = get_arch(arch)
+        for name in ("molecule", "full_graph_sm", "minibatch_lg",
+                     "ogb_products"):
+            cell = cells[name]
+            cfg = cfg_for_cell(spec, cell)
+            frac, note = 1.0, "uncut"
+            if name == "ogb_products":
+                peaks = []
+                for f in GNN_PROBES:
+                    b, ng, nl, E = gnn_cell_batch(arch, cell, seed, f)
+                    peaks.append(gnn_step(arch, cfg, b, ng, nl, seed,
+                                          f"{arch} {name} probe")["peak_gb"])
+                    del b
+                    torch.cuda.empty_cache()
+                # peak = fixed + slope * share, through the two probes
+                slope = (peaks[1] - peaks[0]) / (GNN_PROBES[1] -
+                                                 GNN_PROBES[0])
+                fixed = peaks[0] - slope * GNN_PROBES[0]
+                full_gb = fixed + slope
+                if slope > 0:
+                    frac = min(1.0, (GNN_BUDGET / 1e9 - fixed) / slope)
+                note = (f"peak reckoned {full_gb:.1f} GB uncut (probes at "
+                        f"{GNN_PROBES[0]:.4g} and {GNN_PROBES[1]:.4g} of "
+                        f"it: {peaks[0]:.3f} and {peaks[1]:.3f} GB); " +
+                        ("uncut" if frac == 1.0 else
+                         f"cut to {frac:.4f} of its nodes and edges to "
+                         f"stay under {GNN_BUDGET / 1e9:.0f} GB"))
+            b, ng, nl, E = gnn_cell_batch(
+                arch, cell, seed, frac,
+                block if name == "minibatch_lg" else None)
+            rec = gnn_step(arch, cfg, b, ng, nl, seed, f"{arch} {name}")
+            rec.update(frac=frac, edges=E, nodes=int(b["nodes"].shape[0]),
+                       edges_s=E / rec["s"])
+            if "triplet_kj" in b:
+                rec["triplets"] = int(b["triplet_kj"].shape[0])
+            log(f"[gnn] {arch} {name}: {rec['nodes']} nodes, {E} edges"
+                + (f", {rec['triplets']} triplets" if "triplets" in rec
+                   else "") +
+                f"; warm step {rec['s']:.3f} s (first {rec['first_s']:.3f} "
+                f"s), {rec['edges_s']:.4g} edges/s, peak "
+                f"{rec['peak_gb']:.2f} GB, loss {rec['loss']:.5g}; "
+                f"{note}" + (f"; zero-gradient leaves {rec['unreached']}"
+                             if rec["unreached"] else ""))
+            out[arch][name] = rec
+            del b
+            torch.cuda.empty_cache()
+
+    # card == CPU on the molecule cell, full width, f32
+    for arch in GNN_ARCHS:
+        cell = cells["molecule"]
+        cfg = cfg_for_cell(get_arch(arch), cell)
+        b, ng, nl, _ = gnn_cell_batch(arch, cell, seed)
+        params = S._GNN[arch].init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda")
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(dev), params)
+            bt = {k: v.to(dev) for k, v in b.items()}
+            loss, grads = S.value_and_grad(S.gnn_loss, p, bt, cfg, arch, ng,
+                                           nl)
+            res[dev] = [loss] + grads
+        errs = [rel_norm_err(g.cpu(), w)
+                for g, w in zip(res["cuda"], res["cpu"])]
+        require(max(errs) <= GNN_CPU_TOL,
+                f"{arch} card vs CPU: loss {errs[0]:.3g}, worst leaf "
+                f"{max(errs[1:]):.3g}")
+        log(f"[gnn] {arch} card == CPU on molecule (f32, TF32 off): loss "
+            f"{errs[0]:.3g}, worst of {len(errs) - 1} gradient leaves "
+            f"{max(errs[1:]):.3g} (||d|| / ||cpu||, bar {GNN_CPU_TOL})")
+        out[arch]["cpu_err"] = max(errs)
+        del params, b, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -2474,7 +2898,15 @@ def main() -> int:
                                 f"S=4096): the online scan"}
     phase_t = log_phase(12, phase_t)
 
-    # -- phase 13: the result lines -----------------------------------------
+    # -- phase 13: the recsys and GNN families ------------------------------
+    before = dict(launch_counts)
+    phase_din(args.seed)
+    phase_gnn(args.seed)
+    require(dict(launch_counts) == before,
+            "a kernel launched on the recsys/GNN path, which runs none")
+    phase_t = log_phase(13, phase_t)
+
+    # -- phase 14: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

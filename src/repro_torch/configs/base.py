@@ -27,7 +27,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                   # "lm" | "core" (the nucleus workload)
+    family: str                   # "lm" | "core" | "gnn" | "recsys"
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: Tuple[ShapeCell, ...]

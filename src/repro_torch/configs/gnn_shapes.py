@@ -1,0 +1,71 @@
+"""Shared shape grid of the GNN-family architectures (counterpart of
+``repro.configs.gnn_shapes``).
+
+Shapes carry their own feature/label dims (taken from the public datasets the
+shapes correspond to: cora / reddit / ogbn-products / QM9-like molecules).
+Equivariant archs get synthetic 3-D positions on every shape; DimeNet
+additionally gets capacity-capped triplet lists (cap recorded here).
+``cfg_for_cell`` is the reference's per-cell config rule (its dry run's
+``_gnn_cfg_for_cell``): ``d_in`` from the cell's features, the classes
+(``n_classes`` or ``n_out``) and ``graph_level`` from the cell.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from .base import ArchSpec, ShapeCell
+
+# static sampler capacities for minibatch_lg (fanout 15-10 over 1024 seeds)
+_MB_NODES = 1024 * (1 + 15 + 150)      # 169,984
+_MB_EDGES = 1024 * (15 + 150)          # 168,960
+
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "train",
+              {"n_nodes": 2_708, "n_edges": 10_556, "d_feat": 1_433,
+               "n_classes": 7, "triplet_cap": 8}),
+    ShapeCell("minibatch_lg", "train",
+              {"n_nodes": _MB_NODES, "n_edges": _MB_EDGES, "d_feat": 602,
+               "n_classes": 41, "triplet_cap": 8,
+               "base_nodes": 232_965, "base_edges": 114_615_892,
+               "batch_nodes": 1_024, "fanout": (15, 10)}),
+    ShapeCell("ogb_products", "train",
+              {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100,
+               "n_classes": 47, "triplet_cap": 4}),
+    ShapeCell("molecule", "train",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16,
+               "triplet_cap": 8}),
+)
+
+
+def needs_pos(arch_id: str) -> bool:
+    return arch_id in ("egnn", "mace", "dimenet")
+
+
+def needs_triplets(arch_id: str) -> bool:
+    return arch_id == "dimenet"
+
+
+def is_node_level(cell: ShapeCell) -> bool:
+    """Every cell but ``molecule`` is a node task (n_graphs == n_nodes,
+    graph_id the node index)."""
+    return cell.name != "molecule"
+
+
+def cfg_for_cell(spec: ArchSpec, cell: ShapeCell) -> Any:
+    """``spec``'s full config with the cell's ``d_in`` and classes: a node
+    cell's ``n_classes`` (gin also ``graph_level=False``), a molecule's one
+    output."""
+    cfg = spec.make_config()
+    d = cell.dims
+    node_level = is_node_level(cell)
+    n_out = d.get("n_classes", 1) if node_level else 1
+    kw = {"d_in": d["d_feat"]}
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    if "n_classes" in fields:
+        kw["n_classes"] = n_out
+        if "graph_level" in fields:
+            kw["graph_level"] = not node_level
+    if "n_out" in fields:
+        kw["n_out"] = n_out
+    return dataclasses.replace(cfg, **kw)

@@ -1,5 +1,6 @@
 """Data pipelines of the port (counterpart of ``repro.data``): the LM
-token stream and the DIN stream.  ``GraphMinibatchStream`` and
-``synthetic_molecules`` come with the GNN slice."""
+token stream, the DIN stream, the GNN minibatch stream and synthetic
+molecules."""
 from .pipeline import (TokenStream, TokenStreamConfig, RecsysStream,
-                       RecsysStreamConfig)
+                       RecsysStreamConfig, GraphMinibatchStream,
+                       synthetic_molecules)

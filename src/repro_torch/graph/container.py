@@ -147,3 +147,11 @@ def csr_from_pairs(keys: torch.Tensor, vals: torch.Tensor, n_keys: int):
     offsets = torch.zeros((n_keys + 1,), dtype=INT, device=keys.device)
     offsets[1:] = torch.cumsum(counts, 0).to(INT)
     return offsets, v
+
+
+def is_member(dg: Digraph, row: torch.Tensor, query: torch.Tensor
+              ) -> torch.Tensor:
+    """Vectorized membership: is `query[i]` in dg.adj[row[i]]? (binary search)."""
+    rows = dg.adj[row.long()]  # (B, dmax)
+    idx = torch.clamp(torch.sum(rows < query[:, None], dim=1), 0, dg.dmax - 1)
+    return torch.gather(rows, 1, idx[:, None])[:, 0] == query

@@ -1,11 +1,12 @@
-"""Serving driver: LM decode and nucleus queries (counterpart of
-``repro.launch.serve``).
+"""Serving driver: LM decode, DIN CTR scoring and nucleus queries
+(counterpart of ``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch minicpm-2b`` (or any of the
 reference's five LM archs, the MoE moonshot-v1-16b-a3b and the MoE + MLA
 deepseek-v2-lite-16b among them) prefills waves of prompts and decodes
 tokens with the KV cache, on the card by default (``--device cpu`` runs the
-plain path).  Requests are served in waves of
+plain path); ``--arch din`` scores batched CTR requests (``serve_din``).
+LM requests are served in waves of
 ``batch_slots``: the slots of a wave share one cache length, each wave
 prefills by one-token decode steps over its prompts and then decodes
 ``gen_len - 1`` more tokens, exactly as the reference's loop does.
@@ -21,8 +22,7 @@ stream of graphs through the plan-aware ``repro_torch.serve.Router``
 kernel build cache and the session manifest so a restarted server
 pre-warms its pools; ``--selftest`` drives a short mixed workload over
 HTTP (decompose, query, update, status) and exits.  Every lane runs on the
-card unless ``--device cpu`` is given.  The DIN lane (``--arch din``) is
-not yet ported and raises.
+card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -36,10 +36,10 @@ import torch
 
 from ..configs import get_arch
 from ..device import DeviceLike, resolve_device
+from ..data import RecsysStream, RecsysStreamConfig
+from ..models import din as DIN
 from ..models import transformer as T
 from . import steps as S
-
-NOT_PORTED = ("din",)
 
 
 def _sync(dev: torch.device) -> None:
@@ -58,17 +58,13 @@ def serve_lm(arch_id: str, n_requests: int = 16, batch_slots: int = 4,
     compare with the reference token for token.  The prompts come from
     ``np.random.default_rng(0)`` as in the reference.
     """
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(f"--arch {arch_id} is not yet ported to "
-                                  f"repro_torch (nor are the GNN archs); it "
-                                  f"serves the five LM archs and --arch "
-                                  f"nucleus")
-    if arch_id == "nucleus":
-        raise ValueError("--arch nucleus is no LM: serve it with "
-                         "serve_nucleus, serve_nucleus_warm_pool or "
-                         "serve_nucleus_server")
-    dev = resolve_device(device)
     spec = get_arch(arch_id)
+    if spec.family != "lm":
+        raise ValueError(f"--arch {arch_id} is no LM: serve_lm serves the "
+                         f"LM archs (din: serve_din; nucleus: "
+                         f"serve_nucleus, serve_nucleus_warm_pool or "
+                         f"serve_nucleus_server)")
+    dev = resolve_device(device)
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     if params is None:
         params = T.init_params(cfg, device=dev)
@@ -113,6 +109,32 @@ def serve_lm(arch_id: str, n_requests: int = 16, batch_slots: int = 4,
         print(f"served {done} requests, {gen_len} tokens each, "
               f"{tput:.1f} tok/s ({dev.type})")
     return produced
+
+
+def serve_din(n_batches: int = 8, batch: int = 512, smoke: bool = True,
+              quiet: bool = False, device: DeviceLike = None) -> np.ndarray:
+    """Score ``n_batches`` ``RecsysStream`` batches of ``batch`` requests
+    (labels dropped) with seeded ``din.init_params``; returns their CTR
+    probabilities in order."""
+    dev = resolve_device(device)
+    spec = get_arch("din")
+    cfg = spec.make_smoke_config() if smoke else spec.make_config()
+    params = DIN.init_params(cfg, device=dev)
+    stream = RecsysStream(RecsysStreamConfig(
+        n_items=cfg.n_items, n_cates=cfg.n_cates, n_users=cfg.n_user_feats,
+        seq_len=cfg.seq_len, batch=batch))
+    _sync(dev)
+    t0 = time.perf_counter()
+    scores = []
+    for i in range(n_batches):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch(i).items() if k != "label"}
+        scores.append(S.din_serve_step(params, b, cfg).cpu().numpy())
+    dt = time.perf_counter() - t0
+    if not quiet:
+        print(f"scored {n_batches * batch} requests in {dt:.2f}s "
+              f"({n_batches * batch / dt:.0f} req/s, {dev.type})")
+    return np.concatenate(scores)
 
 
 def _parse_pool_configs(r: str, s: str, method: str
@@ -459,6 +481,8 @@ def main() -> None:
         else:
             serve_nucleus(path=args.decomposition, n_queries=args.queries,
                           device=args.device)
+    elif args.arch == "din":
+        serve_din(n_batches=4, device=args.device)
     else:
         serve_lm(args.arch, n_requests=args.requests, device=args.device)
 

@@ -5,9 +5,11 @@ preemption handling, on the card unless ``device="cpu"`` (``--device
 cpu``).  ``python -m repro_torch.launch.train --arch minicpm-2b --device
 cpu --steps 30`` trains the smoke config on the CPU; every LM arch of the
 reference trains, at its smoke config by default (``--full`` for the
-published one).  The parameters come from ``transformer.init_params``'s
-seeded generator; the reference's sharding rules are not yet ported, so a
-run uses one device.  ``--arch din`` is not yet ported and raises.
+published one).  ``--arch din`` trains the DIN CTR model on
+``RecsysStream`` batches (``train_din``).  The parameters come from each
+model's seeded ``init_params``; the reference's sharding rules are not
+yet ported, so a run uses one device.  The GNN archs have no launcher, as
+in the reference: they train through ``steps.gnn_train_step``.
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..configs import get_arch
-from ..data import TokenStream, TokenStreamConfig
+from ..data import (RecsysStream, RecsysStreamConfig, TokenStream,
+                    TokenStreamConfig)
 from ..device import DeviceLike, resolve_device
 from ..distributed import HeartbeatLog, PreemptionGuard, StragglerMonitor
+from ..models import din as DIN
 from ..models import transformer as T
 from ..optim import adamw
 from . import steps as S
@@ -35,14 +39,9 @@ class TrainRun:
 
 
 def _check_lm(arch_id: str) -> None:
-    if arch_id == "din":
-        raise NotImplementedError("--arch din is not yet ported to "
-                                  "repro_torch: it comes with the din slice "
-                                  "(its model, RecsysStream training and "
-                                  "train_din)")
     if get_arch(arch_id).family != "lm":
         raise ValueError(f"--arch {arch_id} is no LM: train_lm trains the "
-                         f"LM archs")
+                         f"LM archs (din trains with train_din)")
 
 
 def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
@@ -118,6 +117,33 @@ def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
                     restored_from=restored_from)
 
 
+def train_din(steps: int = 100, smoke: bool = True, batch: int = 256,
+              quiet: bool = False, device: DeviceLike = None) -> TrainRun:
+    """Train din for ``steps`` steps of ``batch`` rows from seeded
+    parameters (``din.init_params``), the reference's schedule: lr 1e-3,
+    10 warmup steps, cosine, no weight decay."""
+    dev = resolve_device(device)
+    spec = get_arch("din")
+    cfg = spec.make_smoke_config() if smoke else spec.make_config()
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
+                                schedule="cosine", weight_decay=0.0)
+    stream = RecsysStream(RecsysStreamConfig(
+        n_items=cfg.n_items, n_cates=cfg.n_cates, n_users=cfg.n_user_feats,
+        seq_len=cfg.seq_len, batch=batch))
+    params = DIN.init_params(cfg, device=dev)
+    opt_state = adamw.init_state(params)
+    losses = []
+    for step in range(steps):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch(step).items()}
+        params, opt_state, metrics = S.din_train_step(params, opt_state, b,
+                                                      cfg, opt_cfg)
+        losses.append(float(metrics["loss"]))
+        if not quiet and step % 20 == 0:
+            print(f"step {step:4d}  loss {losses[-1]:.4f}", flush=True)
+    return TrainRun(losses=losses, steps_done=steps, restored_from=None)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minicpm-2b")
@@ -132,10 +158,14 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="cpu runs the plain path; default: the card")
     args = ap.parse_args()
-    run = train_lm(args.arch, steps=args.steps, smoke=args.smoke,
-                   ckpt_dir=args.ckpt_dir, resume=args.resume,
-                   schedule=args.schedule, microbatches=args.microbatches,
-                   device=args.device)
+    if get_arch(args.arch).family == "recsys":
+        run = train_din(steps=args.steps, smoke=args.smoke,
+                        device=args.device)
+    else:
+        run = train_lm(args.arch, steps=args.steps, smoke=args.smoke,
+                       ckpt_dir=args.ckpt_dir, resume=args.resume,
+                       schedule=args.schedule,
+                       microbatches=args.microbatches, device=args.device)
     print(f"done: {run.steps_done} steps, "
           f"loss {run.losses[0]:.4f} -> {run.losses[-1]:.4f}")
 

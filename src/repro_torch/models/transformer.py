@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
+from .. import tree
 from ..optim.adamw import AdamWState
 
 NEG = -1e30  # finite -inf sentinel of the online-softmax scan
@@ -459,29 +460,12 @@ def init_params(cfg: TransformerConfig,
     return params
 
 
-_NP_TO_TORCH = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
 def params_from_reference(np_params: Dict[str, Any], cfg: TransformerConfig,
                           device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's parameter pytree (numpy arrays, e.g. from
-    ``jax.device_get``) as the port's parameters, leaf for leaf.
-
-    bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not
-    take) go through float32, which holds every bf16 value exactly.
-    """
-    dev = resolve_device(device)
-
-    def conv(a):
-        if isinstance(a, dict):
-            return {k: conv(v) for k, v in a.items()}
-        a = np.asarray(a)
-        if a.dtype.name not in _NP_TO_TORCH:
-            raise TypeError(f"unsupported parameter dtype {a.dtype}")
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=_NP_TO_TORCH[a.dtype.name])
-
-    return conv(np_params)
+    ``jax.device_get``) as the port's parameters, leaf for leaf
+    (``tree.params_from_reference``)."""
+    return tree.params_from_reference(np_params, device)
 
 
 def opt_state_from_reference(np_state: Any, like: Dict[str, Any]

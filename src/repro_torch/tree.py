@@ -4,6 +4,7 @@ The port's parameters, gradients and optimizer state are dicts, tuples,
 lists and NamedTuples of tensors (the reference's pytrees).  Every function
 here visits the leaves in ``jax.tree``'s order: dict keys sorted, sequence
 items and NamedTuple fields in order, ``None`` an empty subtree.
+``params_from_reference`` carries the reference's parameters across.
 ``flatten_with_paths`` names each leaf by its ``jax.tree_util`` key path
 joined by ``/`` (``"[0]/['layers']/['wq']"``, ``"[1]/.step"``), the keys
 of a checkpoint's ``arrays.npz``.
@@ -11,6 +12,11 @@ of a checkpoint's ``arrays.npz``.
 from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from .device import DeviceLike, resolve_device
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -101,3 +107,33 @@ def unflatten(like: Any, values: List[Any]) -> Any:
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """``tree``'s structure with ``fn`` of each leaf."""
     return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+_NP_TO_TORCH = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def params_from_reference(np_tree: Any, device: DeviceLike = None) -> Any:
+    """The reference's parameters (nested dicts and lists of numpy arrays,
+    e.g. from ``jax.device_get``) as the port's, leaf for leaf and in the
+    same structure; a 0-d leaf stays 0-d.
+
+    bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not
+    take) go through float32, which holds every bf16 value exactly.
+    """
+    dev = resolve_device(device)
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name not in _NP_TO_TORCH:
+            raise TypeError(f"unsupported parameter dtype {a.dtype}")
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=dev, dtype=_NP_TO_TORCH[a.dtype.name])
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return conv(node)
+
+    return build(np_tree)

@@ -602,3 +602,95 @@ def test_train_step_on_card(cuda_device):
         flash_attention(q, q, q, True)
     with torch.no_grad():
         assert flash_attention(q, q, q, True).shape == q.shape
+
+
+def _rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.double()
+    return float((got.double().cpu() - want).norm()
+                 / want.norm().clamp(min=1e-30))
+
+
+def _card_vs_cpu(loss_fn, params_cpu, args_cpu, dev):
+    """(loss, gradients) on the CPU and on ``dev`` from the same inputs
+    (float32, TF32 off)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.tree import tree_map
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = []
+        for d in ("cpu", dev):
+            def move(x):
+                return x.to(d) if isinstance(x, torch.Tensor) else x
+            args = [tree_map(move, a) if isinstance(a, dict) else move(a)
+                    for a in args_cpu]
+            out.append(value_and_grad(loss_fn, tree_map(
+                lambda p: p.to(d), params_cpu), *args))
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_din_train_step_on_card(cuda_device):
+    """din's smoke config on a padded RecsysStream batch: loss and every
+    gradient leaf on the card equal the CPU's by ||d|| / ||cpu|| <= 1e-4
+    (float32, TF32 off; the card's index_add adds in another order), and
+    ``din_serve_step`` likewise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import RecsysStream, RecsysStreamConfig
+    from repro_torch.launch.steps import din_serve_step
+    from repro_torch.models import din as D
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch("din").make_smoke_config()
+    params = D.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in RecsysStream(RecsysStreamConfig(
+        n_items=cfg.n_items, n_cates=cfg.n_cates, n_users=cfg.n_user_feats,
+        seq_len=cfg.seq_len, batch=64)).batch(0).items()}
+    (cl, cg), (gl, gg) = _card_vs_cpu(D.loss_fn, params, [b, b["label"], cfg],
+                                      cuda_device)
+    assert _rel_norm(gl, cl) <= 1e-4
+    for a, w in zip(gg, cg):
+        assert _rel_norm(a, w) <= 1e-4
+    serve = {k: v for k, v in b.items() if k != "label"}
+    want = din_serve_step(params, serve, cfg)
+    got = din_serve_step(tree_map(lambda p: p.to(cuda_device), params),
+                         {k: v.to(cuda_device) for k, v in serve.items()},
+                         cfg)
+    assert _rel_norm(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dimenet", "egnn", "gin-tu", "mace"])
+def test_gnn_loss_on_card(cuda_device, arch):
+    """Each GNN arch's smoke config on a molecule batch: ``gnn_loss`` and
+    every gradient leaf on the card equal the CPU's by ||d|| / ||cpu|| <=
+    1e-3 (float32, TF32 off; index_add on the card adds with atomics)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_molecules
+    from repro_torch.launch.steps import _GNN, gnn_loss
+
+    cfg = get_arch(arch).make_smoke_config()
+    m = synthetic_molecules(8, 12, 30, cfg.d_in, seed=0, triplet_cap=8)
+    kj, ji, tm = (torch.from_numpy(a) for a in m["triplets"])
+    N, E = m["nodes"].shape[0], m["edge_src"].shape[0]
+    batch = {"nodes": torch.from_numpy(m["nodes"]),
+             "edge_src": torch.from_numpy(m["edge_src"]),
+             "edge_dst": torch.from_numpy(m["edge_dst"]),
+             "node_mask": torch.ones(N, dtype=torch.bool),
+             "edge_mask": torch.ones(E, dtype=torch.bool),
+             "graph_id": torch.from_numpy(m["graph_id"]),
+             "pos": torch.from_numpy(m["pos"]),
+             "triplet_kj": kj, "triplet_ji": ji, "triplet_mask": tm,
+             "energy": torch.from_numpy(m["energy"])[:, None]}
+    params = _GNN[arch].init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    (cl, cg), (gl, gg) = _card_vs_cpu(
+        gnn_loss, params, [batch, cfg, arch, m["n_graphs"], False],
+        cuda_device)
+    assert _rel_norm(gl, cl) <= 1e-3
+    for a, w in zip(gg, cg):
+        assert _rel_norm(a, w) <= 1e-3

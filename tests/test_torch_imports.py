@@ -58,7 +58,12 @@ def test_port_sources_found():
                 "configs/deepseek_v2_lite_16b.py", "distbuild/builder.py",
                 "distbuild/exchange.py", "distbuild/planner.py",
                 "optim/adamw.py", "checkpoint/manager.py", "data/pipeline.py",
-                "distributed/runtime.py", "launch/train.py", "tree.py"):
+                "distributed/runtime.py", "launch/train.py", "tree.py",
+                "models/gnn_common.py", "models/din.py", "models/gin.py",
+                "models/egnn.py", "models/dimenet.py", "models/mace.py",
+                "configs/din.py", "configs/gnn_shapes.py",
+                "configs/gin_tu.py", "configs/egnn.py", "configs/dimenet.py",
+                "configs/mace.py", "graph/sampler.py", "graph/unionfind.py"):
         assert mod in rel, mod
 
 
@@ -124,7 +129,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.moonshot_v1_16b_a3b, "
             "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.data, "
-            "repro_torch.distributed, repro_torch.launch.train; "
+            "repro_torch.distributed, repro_torch.launch.train, "
+            "repro_torch.models.din, repro_torch.models.gin, "
+            "repro_torch.models.egnn, repro_torch.models.dimenet, "
+            "repro_torch.models.mace, repro_torch.configs.gnn_shapes, "
+            "repro_torch.graph.sampler, repro_torch.launch.steps; "
             "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")

@@ -546,7 +546,7 @@ def test_lanes_raise_without_a_card(monkeypatch):
                  lambda: launch.serve_nucleus_warm_pool(quiet=True),
                  lambda: launch.serve_nucleus_server(selftest=True,
                                                      quiet=True),
-                 lambda: Router(), lambda: Frontend()):
+                 lambda: Router(), lambda: Frontend(),
+                 lambda: launch.serve_din(n_batches=1, quiet=True)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
-    assert "nucleus" not in launch.NOT_PORTED

@@ -75,8 +75,12 @@ def test_prefill_step_argmax_matches_reference(arch):
 
 
 def test_serve_lm_unported_lanes_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """serve_lm serves the LM archs only: din is served by serve_din
+    (tests/test_torch_din.py) and nucleus by its own lanes
+    (tests/test_torch_serve.py)."""
+    with pytest.raises(ValueError, match="serve_din"):
         serve.serve_lm("din", device="cpu")
-    # nucleus is ported, by its own lanes (tests/test_torch_serve.py)
     with pytest.raises(ValueError, match="serve_nucleus"):
         serve.serve_lm("nucleus", device="cpu")
+    with pytest.raises(ValueError, match="no LM"):
+        serve.serve_lm("gin-tu", device="cpu")

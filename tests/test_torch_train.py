@@ -126,7 +126,8 @@ def test_loss_and_gradient_match_reference(arch):
     jl, jg = j_value_and_grad(jp, jnp.asarray(b["tokens"]),
                               jnp.asarray(b["labels"]), jc)
     before = dict(launch_counts)
-    loss, grads = S.lm_value_and_grad(tp, t(b["tokens"]), t(b["labels"]), tc)
+    loss, grads = S.value_and_grad(T.loss_fn, tp, t(b["tokens"]),
+                                   t(b["labels"]), tc)
     assert dict(launch_counts) == before
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     got = unflatten(tp, grads)
@@ -136,8 +137,9 @@ def test_loss_and_gradient_match_reference(arch):
     for name in (("wq", "w_dkv", "w_uk", "w_uv") if tc.mla else
                  ("wq", "wk", "wv")):
         assert float(got["layers"][name].abs().max()) > 0, name
-    _, remat = S.lm_value_and_grad(tp, t(b["tokens"]), t(b["labels"]),
-                                   dataclasses.replace(tc, remat=True))
+    _, remat = S.value_and_grad(T.loss_fn, tp, t(b["tokens"]),
+                                t(b["labels"]),
+                                dataclasses.replace(tc, remat=True))
     assert all(torch.equal(a, c) for a, c in zip(grads, remat))
 
 
@@ -145,7 +147,8 @@ def test_value_and_grad_leaves_params_untouched():
     """The step differentiates detached views: the caller's leaves get no
     ``requires_grad`` and no ``.grad``."""
     _, tc, _, tp = pair("minicpm-2b")
-    S.lm_value_and_grad(tp, *on_torch(batch(tc.vocab, 2)).values(), tc)
+    S.value_and_grad(T.loss_fn, tp, *on_torch(batch(tc.vocab, 2)).values(),
+                     tc)
     for _, p in flatten_with_paths(tp):
         assert not p.requires_grad and p.grad is None
 
@@ -499,7 +502,10 @@ def test_every_lm_arch_trains_at_its_smoke_config(arch):
 
 
 def test_train_lm_unported_and_non_lm_archs_raise():
-    with pytest.raises(NotImplementedError, match="din slice"):
+    """train_lm trains the LM archs only: din trains with train_din
+    (tests/test_torch_din.py); nucleus and the GNN archs are no LM."""
+    with pytest.raises(ValueError, match="train_din"):
         train_lm("din", steps=1, device="cpu")
-    with pytest.raises(ValueError, match="no LM"):
-        train_lm("nucleus", steps=1, device="cpu")
+    for arch in ("nucleus", "mace"):
+        with pytest.raises(ValueError, match="no LM"):
+            train_lm(arch, steps=1, device="cpu")

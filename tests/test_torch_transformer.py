@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_ARCH_IDS as J_ALL_ARCH_IDS
 from repro.configs import get_arch as j_get_arch
 from repro.models import transformer as JT
 from repro_torch.configs import ALL_ARCH_IDS, get_arch
@@ -77,11 +78,16 @@ def smoke_pair(arch):
 
 
 def test_registry_has_the_dense_archs_only():
-    """The ported LM archs are the reference's five: the three dense ones,
-    the MoE moonshot-v1-16b-a3b and the MoE + MLA deepseek-v2-lite-16b
-    (their parity: tests/test_torch_moe_mla.py); the registry also holds
-    the nucleus workload's config (``configs.nucleus``)."""
-    assert ALL_ARCH_IDS == tuple(sorted(ARCHS + MOE_ARCHS + ("nucleus",)))
+    """The registry equals the reference's: the five LM archs (the three
+    dense ones, the MoE moonshot-v1-16b-a3b and the MoE + MLA
+    deepseek-v2-lite-16b; their parity: tests/test_torch_moe_mla.py), the
+    four GNN archs and din, and the nucleus workload's config
+    (``configs.nucleus``).  The ten assigned archs have four cells each:
+    40, as the reference counts them."""
+    assert ALL_ARCH_IDS == J_ALL_ARCH_IDS
+    assigned = set(ALL_ARCH_IDS) - {"nucleus"}
+    assert set(ARCHS + MOE_ARCHS) <= assigned and len(assigned) == 10
+    assert sum(len(get_arch(a).shapes) for a in assigned) == 40
 
 
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
