@@ -12,9 +12,10 @@ exact updates, a multi-tenant router and its HTTP surface), the
 sharded lane (the sharded build, the peel over a mesh of slabs, its exact
 compressed reduction and a sharded pool), MoE and MLA inference of
 moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, LM training
-of minicpm-2b at full width (AdamW steps, checkpoints), and last the recsys
-(din) and GNN (gin-tu, egnn, dimenet, mace) families at their published
-widths, which run no kernel.  Every kernel of those paths is checked
+of minicpm-2b at full width (AdamW steps, checkpoints), the recsys (din)
+and GNN (gin-tu, egnn, dimenet, mace) families at their published widths,
+and last minicpm-2b's training sharded over a (2, 2) named mesh with the
+elastic re-mesh restore; the last three run no kernel.  Every kernel of those paths is checked
 against its plain-torch version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
@@ -70,7 +71,7 @@ Phases (any failure ends the run with a non-zero exit):
   9. the nucleus server: ``Session().decompose`` of the smoke problem
      (counted in its pow2 shape bucket, run by ``decompose``'s engine),
      bit-identical to phase 3 with megakernel launches == rounds, and a
-     warm same-bucket call; one seeded delta of 8 inserts and 8 deletes
+     warm same-bucket call; one seeded delta of 4 inserts and 4 deletes
      through ``Session.update`` at (2,3) and on phase 7's (1,2) artifact,
      each equal to a fresh decompose of the edited graph (core, uf_parent,
      tree, cuts at three levels; uf_L equal to the canonical-chain
@@ -79,7 +80,7 @@ Phases (any failure ends the run with a non-zero exit):
      vertices round-robin over (2,3) exact, (1,2) exact and (2,3) approx
      through one ``Router`` (3 pools, 3 warm hits, every artifact equal to
      ``decompose``, the megakernel or the k-core lane's segment sum
-     launched once a round) with 16 queries per artifact (each nuclei
+     launched once a round) with 4 queries per artifact (each nuclei
      answer's labels equal to its cut's); the HTTP
      server's selftest and a restart from its cache directory (every
      decompose warm); ``serve_nucleus`` on the saved smoke artifact;
@@ -130,7 +131,20 @@ Phases (any failure ends the run with a non-zero exit):
      a zero gradient exactly on the leaves the loss cannot reach
      (``gnn_unreached``), every other leaf changed; the second step is
      timed; and equal the CPU on the molecule cell;
- 14. a JSON line of per-kernel numbers, the card's name and power limit,
+ 14. sharded LM training of minicpm-2b (``phase_sharded_train``): at full
+     width in bf16 with remat on a ("data", "model") = (2, 2) mesh over
+     the card's slots, parameters and AdamW moments placed by the
+     reference's ``lm_param_rules`` (each slot's bytes equal to the specs'
+     share), three ``lm_train_step_sharded`` at B = 2, S = 4,096 timed
+     (finite losses, every leaf's slot-0 shard changed); the same step at
+     2 layers in f32 against the one-device ``lm_train_step`` (loss 1e-4,
+     params 5e-4 outside Adam's eps regime) and bit for bit against
+     ``lm_train_step_microbatched``, replicated slices bit-identical across
+     slots; ``train_lm`` of the 2-layer cut in bf16 on (2, 2) saving at
+     step 2, the checkpoint restored with ``sharding_tree`` onto (4, 1),
+     (1, 4) and (1, 1) bit for bit and a run resumed on (1, 1) equal to an
+     uninterrupted one; ``setup_platform``'s record.  No kernel launched;
+ 15. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -140,12 +154,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -169,12 +185,12 @@ LM_ARCH = "minicpm-2b"   # the LM path's model, at its published width
 PREFILL_S = 32_768       # prefill_32k's sequence (its global batch 32 -> 1)
 PLAIN_ROWS = 1_024       # query rows per slice of the plain twin at PREFILL_S
 CPU_CHECK_S = 256        # card-vs-CPU forward: full width, 2 layers, f32
-UPDATE_OPS = 8           # phase 9 (b): inserts and deletes of one delta
+UPDATE_OPS = 4           # phase 9 (b): inserts and deletes of one delta
 POOL_N = 250_000         # phase 9 (c): the warm pool's graphs have
 POOL_STEP = 1_000        # POOL_N + POOL_STEP·i vertices
 POOL_GRAPHS = 6          # ... round-robin over POOL_CONFIGS: 2 per pool
-POOL_QUERIES = 16        # ... cut/nuclei queries per artifact
-SERVE_QUERIES = 64       # phase 9 (e): queries of the saved artifact
+POOL_QUERIES = 4         # ... cut/nuclei queries per artifact
+SERVE_QUERIES = 16       # phase 9 (e): queries of the saved artifact
 POOL_CONFIGS = ({"r": 2, "s": 3}, {"r": 1, "s": 2},
                 {"r": 2, "s": 3, "method": "approx"})
 # flash attention vs its plain twin: (B, H, Hkv, Sq, Sk, D, causal, dtype)
@@ -618,7 +634,6 @@ def profile_peel(problem):
     over the untraced call's wall time, because tracing slows the host
     side.  Returns the megakernel's summed device seconds and launch count
     in the traced call (None, 0 when the trace has no device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import NucleusConfig, decompose
     torch.cuda.synchronize()
@@ -633,12 +648,7 @@ def profile_peel(problem):
         decompose(problem, NucleusConfig())
         torch.cuda.synchronize()
     traced_s = time.perf_counter() - t
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    events = device_events(prof)
     busy = sum(dev_us(e) for e in events) / 1e6
     total_s = time.perf_counter() - t
     if busy == 0:
@@ -1064,16 +1074,28 @@ def profile_decode(params, cfg, steps: int = 8, tag: str = "lm"):
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": n_kernels}
 
 
-def dev_us(e) -> float:
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0))
+class DeviceEvent(NamedTuple):
+    key: str          # kernel, copy or set name
+    count: int
+    device_us: float  # summed device time
 
 
-def device_events(prof):
-    """The trace's kernels with device time, summed by name."""
+def dev_us(e: DeviceEvent) -> float:
+    return e.device_us
+
+
+def device_events(prof) -> list:
+    """The trace's device events (kernels, copies, sets) with device time,
+    summed by name.  Read from the kineto results: the profiler's Python
+    parse of every event (``key_averages``) took ~100 s of a decompose's
+    trace."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            count, ns = total.get(e.name(), (0, 0))
+            total[e.name()] = (count + 1, ns + e.duration_ns())
+    return [DeviceEvent(k, c, ns / 1e3) for k, (c, ns) in total.items()]
 
 
 def top_kernels(events, total_ms: float, tag: str, what: str,
@@ -1512,6 +1534,7 @@ def phase_train(seed: int):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import base, get_arch
     from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.steps import (lm_prefill_step, lm_train_step,
@@ -1675,13 +1698,14 @@ def phase_train(seed: int):
         restored state with it."""
 
         def save(self, step, state, extra=None, blocking=False):
-            saved[step] = [x.clone() for x in leaves(state)]
+            saved[step] = SH.gather(state, "cuda")
             super().save(step, state, extra, blocking)
 
-        def restore(self, like, step=None):
-            state, at, extra = super().restore(like, step)
+        def restore(self, like, step=None, sharding_tree=None):
+            state, at, extra = super().restore(like, step, sharding_tree)
             restored[at] = all(same_bits(a, b) for a, b in
-                               zip(leaves(state), saved[at]))
+                               zip(leaves(SH.gather(state, "cuda")),
+                                   leaves(saved[at])))
             return state, at, extra
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2543,6 +2567,312 @@ def phase_gnn(seed: int):
     return out
 
 
+# phase 14: sharded LM training of minicpm-2b and the elastic restore
+SHARD_MESH = (2, 2)      # ("data", "model"): four slots, one card or four
+SHARD_B = 2              # train_4k's global batch of 256 cut to 2 (a row
+SHARD_STEPS = 3          # a data index); sharded steps timed, the last warm
+SHARD_CHECK_S = 256      # (b): the full width at 2 layers in f32
+SHARD_LOSS_TOL = 1e-4    # (b): the reference's sharded-step bars: loss
+SHARD_PARAM_TOL = 5e-4   # rel, params abs outside Adam's eps regime
+EPS_REGIME = 1e-5        # sqrt(nu_hat) below this: Adam's eps regime
+REMESH = ((4, 1), (1, 4), (1, 1))  # (c): meshes the (2, 2) save restores on
+DM = ("data", "model")
+
+
+def shard_bytes(sharded, slot: int) -> int:
+    """Bytes slot ``slot`` holds of a list of sharded tensors."""
+    return sum(st.shards[slot].numel() * st.shards[slot].element_size()
+               for st in sharded)
+
+
+def spec_share_bytes(sharded) -> int:
+    """A slot's bytes as the specs reckon them: each tensor's bytes over
+    the product of the axis sizes its spec uses."""
+    total = 0
+    for st in sharded:
+        parts = math.prod(st.mesh.shape[a] for e in st.spec if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        total += st.shape.numel() * st.dtype.itemsize // parts
+    return total
+
+
+def same_replicas(sharded) -> bool:
+    """Slots that hold one slice of a tensor hold equal bits."""
+    for st in sharded:
+        first = {}
+        for j, shard in enumerate(st.shards):
+            key = tuple((x.start, x.stop) for x in st.index(j))
+            if not same_bits(first.setdefault(key, shard), shard):
+                return False
+    return True
+
+
+def tree_clone(x):
+    return {k: tree_clone(v) for k, v in x.items()} if isinstance(x, dict) \
+        else x.clone()
+
+
+def phase_sharded_train(seed: int):
+    """Phase 14: sharded LM training of minicpm-2b and the elastic
+    re-mesh restore.  (a) At its published width (bf16, remat) on a
+    ("data", "model") = (2, 2) mesh over the card's slots (the distinct
+    cards, repeated in order): parameters placed by ``lm_param_rules``,
+    SHARD_STEPS ``lm_train_step_sharded`` at B = 2, S = 4,096, each timed
+    (synced) with tok/s and peak GB; every slot's shard bytes equal the
+    specs' share; finite losses; every leaf's slot-0 shard changed by the
+    first step.  (b) The full width at 2 layers in f32: the (2, 2) step
+    against the one-device ``lm_train_step`` from the same weights and
+    batch (loss rel 1e-4; params 5e-4 outside Adam's eps regime, lr
+    inside), bit for bit against ``lm_train_step_microbatched`` of 2 row
+    groups, replicated slices bit-identical across slots.  (c) The 2-layer
+    cut in bf16 through ``train_lm``: a (2, 2) run saves at step 2, its
+    checkpoint restores with ``sharding_tree`` onto (4, 1), (1, 4) and
+    (1, 1) bit for bit, and a run resumed on (1, 1) gives the losses of
+    an uninterrupted (2, 2) run (rtol 1e-4).  (d) ``setup_platform``'s
+    record.  No kernel lies on this path."""
+    import shutil
+    import tempfile
+    import zipfile
+    from repro_torch import device as device_policy
+    from repro_torch.configs import base, get_arch
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.platform import setup_platform
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_paths, leaves
+
+    spec = get_arch(LM_ARCH)
+    cfg = spec.make_config()
+    seq = spec.shape("train_4k").dims["seq_len"]
+    n_params = cfg.param_count()
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, schedule="wsd", warmup_steps=1,
+                            total_steps=SHARD_STEPS)
+    gc.collect()    # earlier phases' cyclic garbage may hold card memory
+    torch.cuda.empty_cache()
+    mesh = make_mesh(SHARD_MESH, DM)
+    log(f"[sharded-train] mesh {mesh}; {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB allocated before the phase")
+
+    # -- (a) full width on (2, 2) -----------------------------------------
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    shardings = S.lm_state_shardings(params, cfg, mesh)
+    params = SH.device_put(params, shardings[0])
+    state = S.init_sharded_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    place_s = time.perf_counter() - t
+    slot_bytes = [shard_bytes(leaves((params, state)), i)
+                  for i in range(mesh.size)]
+    share = spec_share_bytes(leaves((params, state)))
+    require(all(b == share for b in slot_bytes),
+            f"slot bytes {slot_bytes} != the specs' share {share}")
+    specs = {k: tuple(st.spec) for k, st in
+             flatten_with_paths(params, plain=True)}
+    log(f"[sharded-train] {LM_ARCH} full width, {n_params} params, bf16, "
+        f"remat, placed by lm_param_rules in {place_s:.2f} s: {specs}; "
+        f"each slot holds {share / 1e9:.3f} GB of params + moments "
+        f"(= the specs' share), {mesh.size} slots "
+        f"{sum(slot_bytes) / 1e9:.3f} GB")
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
+                                           global_batch=SHARD_B, seed=seed))
+    first = [st.shards[0].clone() for st in leaves(params)]
+    steps = []
+    for i in range(SHARD_STEPS):
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch(i).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params, state, m = S.lm_train_step_sharded(params, state, b, cfg,
+                                                   opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        m = {k: float(v) for k, v in m.items()}
+        ntok = b["tokens"].numel()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps.append({"step": i, "s": wall, "tok_s": ntok / wall,
+                      "peak_gb": peak, **m})
+        log(f"[sharded-train] step {i} ((2, 2), B={SHARD_B}, S={seq}): "
+            f"{wall:.3f} s, {ntok / wall:.0f} tok/s "
+            f"({6 * n_params * ntok / wall / 1e12:.1f} TFLOP/s by 6ND), "
+            f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lr "
+            f"{m['lr']:.3g}, peak {peak:.2f} GB")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"sharded step {i}: loss or grad_norm not finite")
+        if i == 0:
+            same = [k for (k, st), s0 in zip(flatten_with_paths(params),
+                                             first)
+                    if torch.equal(st.shards[0], s0)]
+            require(not same, f"slot-0 shards unchanged by the first "
+                    f"sharded step: {same}")
+            del first
+    warm = steps[-1]
+    log(f"[sharded-train] warm step: {warm['s']:.3f} s, "
+        f"{warm['tok_s']:.0f} tok/s, peak {warm['peak_gb']:.2f} GB "
+        f"(one-device B=1 in phase 12)")
+    del params, state, b
+    torch.cuda.empty_cache()
+
+    # -- (b) 2 layers, f32: (2, 2) vs one device --------------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    base_p = T.init_params(cfg2, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    toks = torch.randint(0, cfg2.vocab, (SHARD_B, SHARD_CHECK_S + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    b = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    sp = SH.device_put(base_p, S.lm_state_shardings(base_p, cfg2, mesh)[0])
+    sp, ss, sm = S.lm_train_step_sharded(sp, S.init_sharded_state(sp), b,
+                                         cfg2, opt)
+    got = SH.gather((sp, ss), "cuda")
+    replicas = same_replicas(leaves((sp, ss)))
+    del sp, ss
+    one = tree_clone(base_p)
+    one_p, one_s, om = S.lm_train_step(one, adamw.init_state(one), b, cfg2,
+                                       opt)
+    loss_err = abs(float(sm["loss"]) - float(om["loss"])) / abs(
+        float(om["loss"]))
+    bc2 = 1 - opt.b2 ** int(one_s.step)
+    lr = float(om["lr"])
+    worst_out, worst_in = 0.0, 0.0
+    for g, w, nu in zip(leaves(got[0]), leaves(one_p), leaves(one_s.nu)):
+        regime = torch.sqrt(nu / bc2) < EPS_REGIME
+        d = (g - w).abs()
+        worst_out = max(worst_out, float(d[~regime].max()) if
+                        bool((~regime).any()) else 0.0)
+        worst_in = max(worst_in, float(d[regime].max()) if
+                       bool(regime.any()) else 0.0)
+    require(loss_err <= SHARD_LOSS_TOL and worst_out <= SHARD_PARAM_TOL and
+            worst_in <= lr,
+            f"sharded step != one-device step: loss rel {loss_err:.3g}, "
+            f"params {worst_out:.3g} outside the eps regime, {worst_in:.3g} "
+            f"inside (lr {lr:.3g})")
+    del one, one_p, one_s
+    mp = tree_clone(base_p)
+    mp, ms, mm = S.lm_train_step_microbatched(mp, adamw.init_state(mp), b,
+                                              cfg2, opt, SHARD_MESH[0])
+    micro_bits = all(same_bits(a, c) for a, c in zip(leaves(got),
+                                                     leaves((mp, ms))))
+    require(micro_bits and same_bits(sm["loss"], mm["loss"]),
+            "the sharded step differs from lm_train_step_microbatched of "
+            "|data| row groups")
+    require(replicas, "slots holding one slice hold different bits")
+    log(f"[sharded-train] (2, 2) vs one device, full width, 2 layers, f32, "
+        f"B={SHARD_B} S={SHARD_CHECK_S}: loss rel err {loss_err:.3g} (bar "
+        f"{SHARD_LOSS_TOL}), params max abs err {worst_out:.3g} outside "
+        f"Adam's eps regime (bar {SHARD_PARAM_TOL}), {worst_in:.3g} inside "
+        f"(bar lr {lr:.3g}); bit-identical to lm_train_step_microbatched "
+        f"of {SHARD_MESH[0]} row groups; replicated slices bit-identical "
+        f"across slots")
+    del got, mp, ms, base_p, b
+    torch.cuda.empty_cache()
+
+    # -- (c) the elastic restore: 2-layer cut, bf16, train_lm --------------
+    cut_id = f"{LM_ARCH}-2-layers"
+    base.register(dataclasses.replace(
+        spec, arch_id=cut_id,
+        make_config=lambda: dataclasses.replace(cfg, n_layers=2)))
+    saved, remesh = {}, {}
+    manager = train_mod.CheckpointManager
+
+    class Recorded(manager):
+        """Keeps a card copy of each saved (logical) state, and times each
+        restore and holds it to the saved state bit for bit."""
+
+        def save(self, step, state, extra=None, blocking=False):
+            saved[step] = SH.gather(state, "cuda")
+            super().save(step, state, extra, blocking)
+
+        def restore(self, like, step=None, sharding_tree=None):
+            t = time.perf_counter()
+            state, at, extra = super().restore(like, step, sharding_tree)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            flat = leaves(state)
+            mesh = flat[0].mesh
+            ok = all(st.mesh == mesh and same_bits(st.gather("cuda"), w)
+                     for st, w in zip(flat, leaves(saved[at])))
+            remesh[mesh.axis_sizes] = (ok, dt, shard_bytes(flat, 0))
+            return state, at, extra
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_remesh_")
+    train_mod.CheckpointManager = Recorded
+    try:
+        run = dict(smoke=False, quiet=True)
+        t = time.perf_counter()
+        whole = train_mod.train_lm(cut_id, steps=RESUME_STEPS,
+                                   mesh=make_mesh(SHARD_MESH, DM), **run)
+        part = train_mod.train_lm(cut_id, steps=2, ckpt_dir=tmp,
+                                  ckpt_every=2,
+                                  mesh=make_mesh(SHARD_MESH, DM), **run)
+        save_s = time.perf_counter() - t
+        with zipfile.ZipFile(os.path.join(tmp, "step_2",
+                                          "arrays.npz")) as z:
+            members = z.namelist()
+        require(members == CKPT_MEMBERS,
+                f"checkpoint members {members} are not the reference's")
+        # onto (4, 1) and (1, 4) here; onto (1, 1) in the resumed run
+        like = saved[2]
+        ccfg = get_arch(cut_id).make_config()
+        for sizes in REMESH[:-1]:
+            state, _, _ = Recorded(tmp).restore(
+                like, sharding_tree=S.lm_state_shardings(
+                    like[0], ccfg, make_mesh(sizes, DM)))
+            del state
+            torch.cuda.empty_cache()
+        del like
+        t = time.perf_counter()
+        resumed = train_mod.train_lm(cut_id, steps=RESUME_STEPS,
+                                     ckpt_dir=tmp, ckpt_every=10 ** 9,
+                                     resume=True, microbatches=SHARD_MESH[0],
+                                     mesh=make_mesh(REMESH[-1], DM), **run)
+        resume_s = time.perf_counter() - t
+    finally:
+        train_mod.CheckpointManager = manager
+        shutil.rmtree(tmp, ignore_errors=True)
+        del base._REGISTRY[cut_id]
+        saved.clear()
+    require(resumed.restored_from == 2, "the (1, 1) run did not resume")
+    require(sorted(remesh) == sorted(REMESH) and
+            all(v[0] for v in remesh.values()),
+            f"restores not bit for bit the saved state: "
+            f"{ {k: v[0] for k, v in remesh.items()} }")
+    require(np.allclose(part.losses, whole.losses[:2], rtol=1e-4, atol=0),
+            "the saving run's losses differ from the whole run's")
+    require(np.allclose(resumed.losses, whole.losses[2:], rtol=1e-4,
+                        atol=0),
+            f"resumed (1, 1) losses {resumed.losses} != uninterrupted "
+            f"(2, 2) {whole.losses[2:]}")
+    log(f"[sharded-train] elastic restore, 2 layers, bf16 (train_lm, B=8, "
+        f"S=64): a (2, 2) run saved at step 2 ({len(members)} members, the "
+        f"reference's keys; whole + saving run {save_s:.2f} s); restored "
+        f"bit for bit onto " + ", ".join(
+            f"{k} in {v[1]:.2f} s ({v[2] / 1e9:.3f} GB in slot 0)"
+            for k, v in remesh.items()) +
+        f"; the (1, 1) run resumed with {SHARD_MESH[0]} microbatches: "
+        f"losses {resumed.losses} == uninterrupted (2, 2) "
+        f"{whole.losses[2:]} (rtol 1e-4; {resume_s:.2f} s)")
+
+    # -- (d) setup_platform's record -----------------------------------------
+    records = [setup_platform()]
+    try:
+        records.append(setup_platform("gpu", cpu_devices=2))
+    finally:
+        device_policy.set_platform(None)
+        device_policy.set_cpu_slots(1)
+    require(records[0] == dict.fromkeys(records[0]),
+            f"setup_platform() applied {records[0]}")
+    log(f"[platform] setup_platform() -> {records[0]}; "
+        f"setup_platform('gpu', cpu_devices=2) -> {records[1]}")
+    return {"steps": steps, "slot_bytes": share, "loss_err": loss_err,
+            "param_err": worst_out}
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -2906,7 +3236,21 @@ def main() -> int:
             "a kernel launched on the recsys/GNN path, which runs none")
     phase_t = log_phase(13, phase_t)
 
-    # -- phase 14: the result lines -----------------------------------------
+    # -- phase 14: sharded LM training and the elastic restore ---------------
+    del g, bare, counts, order_t, ba, d_gpu, d_cpu
+    torch.cuda.empty_cache()
+    before = dict(launch_counts)
+    shard = phase_sharded_train(args.seed)
+    require(dict(launch_counts) == before,
+            "a kernel launched on the sharded training path, which runs "
+            "none")
+    rows[3]["sharded_train"] = {
+        "launches": 0, "warm_step_s": shard["steps"][-1]["s"],
+        "path": f"lm_train_step_sharded({LM_ARCH}, mesh {SHARD_MESH}, "
+                f"B={SHARD_B}, S=4096): the online scan"}
+    phase_t = log_phase(14, phase_t)
+
+    # -- phase 15: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

@@ -1,4 +1,4 @@
-"""Fault-tolerant checkpointing: atomic, async (counterpart of
+"""Fault-tolerant checkpointing: atomic, async, elastic (counterpart of
 ``repro.checkpoint.manager``).
 
   * **Atomic**: state is written to `step_N.tmp/` then `os.rename`d to
@@ -6,6 +6,10 @@
   * **Async**: the device->host copy happens in `save` (so the caller may
     update its tensors in place right after), the disk write runs on a
     background thread; `wait()` joins before the next save or at exit.
+  * **Elastic re-mesh restore**: a checkpoint stores LOGICAL arrays (a
+    sharded tensor is gathered in `save`), so `restore(...,
+    sharding_tree=)` places them over whatever mesh the new job has, of
+    any shape and slot count.
   * Retention: keeps the newest `keep` checkpoints.
 
 **The files are the reference's.**  `arrays.npz` holds one `.npy` member
@@ -18,8 +22,10 @@ reinterpreting those bits, never through a float cast.  Each file can be
 restored by the other package; the reference itself cannot restore a
 bfloat16 leaf (its `astype` has no cast from `V2`).
 
-`restore` puts each leaf on the device and dtype of `like`'s leaf.  The
-reference's `sharding_tree` (its elastic re-mesh) has no counterpart yet.
+`restore` gives each leaf the dtype of `like`'s leaf, and places it by
+its sharding in `sharding_tree` (`distributed.sharding.NamedSharding`
+leaves, or None), else as `like`'s leaf lies: on its device, or over its
+mesh when it is a `ShardedTensor`.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..tree import flatten_with_paths, unflatten
+from ..distributed.sharding import NamedSharding, ShardedTensor, device_put
+from ..tree import flatten_with_paths, leaves_like, unflatten
 
 _BF16_DESCR = "<V2"  # np.save's header for an ml_dtypes.bfloat16 array
 
@@ -41,9 +48,12 @@ _BF16_DESCR = "<V2"  # np.save's header for an ml_dtypes.bfloat16 array
 def _to_host(leaf: Any) -> np.ndarray:
     """A numpy copy of a leaf that later in-place updates cannot touch;
     bfloat16 tensors as int16 words (written under ``_BF16_DESCR``)."""
-    if not isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, ShardedTensor):
+        host = leaf.gather("cpu")
+    elif isinstance(leaf, torch.Tensor):
+        host = leaf.detach().to("cpu", copy=True)
+    else:
         return np.array(leaf)
-    host = leaf.detach().to("cpu", copy=True)
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy()
     return host.numpy()
@@ -67,16 +77,23 @@ def _write_npz(path: str, host: Dict[str, np.ndarray],
                                               allow_pickle=False)
 
 
-def _leaf_like(arr: np.ndarray, want: Any) -> Any:
-    """A stored array as a leaf like ``want``: a tensor on its device and
-    dtype (bfloat16 words reinterpreted), or the array as stored."""
-    if not isinstance(want, torch.Tensor):
+def _leaf_like(arr: np.ndarray, want: Any,
+               sharding: Optional[NamedSharding]) -> Any:
+    """A stored array as a leaf like ``want``: a tensor of its dtype
+    (bfloat16 words reinterpreted) placed by ``sharding``, or else as
+    ``want`` lies; the array as stored when ``want`` is no tensor."""
+    if not isinstance(want, (torch.Tensor, ShardedTensor)):
         return arr
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return t.to(device=want.device, dtype=want.dtype)
+    t = t.to(dtype=want.dtype)
+    if sharding is None and isinstance(want, ShardedTensor):
+        sharding = want.sharding
+    if sharding is not None:
+        return device_put(t, sharding)
+    return t.to(device=want.device)
 
 
 class CheckpointManager:
@@ -92,8 +109,8 @@ class CheckpointManager:
         self.wait()
         flat = flatten_with_paths(state)
         host = {k: _to_host(v) for k, v in flat}
-        bf16 = {k: isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
-                for k, v in flat}
+        bf16 = {k: isinstance(v, (torch.Tensor, ShardedTensor)) and
+                v.dtype == torch.bfloat16 for k, v in flat}
         meta = {"step": int(step), "extra": extra or {}}
 
         def write():
@@ -142,9 +159,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return max(steps) if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None):
-        """Restore into the structure of `like`: each leaf on the device
-        and dtype of `like`'s leaf.  Returns (state, step, extra)."""
+    def restore(self, like: Any, step: Optional[int] = None,
+                sharding_tree: Any = None):
+        """Restore into the structure of `like`; reshard if shardings given.
+
+        Returns (state, step, extra).  `sharding_tree` mirrors `like` with
+        `NamedSharding` leaves (or None to place a leaf as `like`'s lies):
+        the elastic re-mesh path, since the stored arrays are logical and
+        any mesh shape works."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -159,5 +181,9 @@ class CheckpointManager:
             if missing:
                 raise KeyError(f"checkpoint missing keys: "
                                f"{sorted(missing)[:5]}")
-            leaves = [_leaf_like(arrays[k], want) for k, want in flat_like]
+            shardings = (leaves_like(sharding_tree, like)
+                         if sharding_tree is not None
+                         else [None] * len(flat_like))
+            leaves = [_leaf_like(arrays[k], want, sh) for (k, want), sh in
+                      zip(flat_like, shardings)]
         return unflatten(like, leaves), meta["step"], meta["extra"]

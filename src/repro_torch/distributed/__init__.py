@@ -1,5 +1,5 @@
-"""Runtime services around the train loop (counterpart of
-``repro.distributed``'s ``runtime``).  The LM sharding rules
-(``repro.distributed.sharding``) are not yet ported."""
+"""Runtime services around the train loop and the sharding rules
+(counterpart of ``repro.distributed``): ``runtime``'s guards and
+``sharding``'s specs, rule tables and sharded tensors."""
 from .runtime import (StragglerMonitor, PreemptionGuard, ElasticPlan,
                       HeartbeatLog)

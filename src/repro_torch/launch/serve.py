@@ -426,11 +426,18 @@ def serve_nucleus_server(port: int = 0, cache_dir: str = "",
 
 
 def main() -> None:
+    from .platform import setup_platform
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="minicpm-2b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the plain path)")
+    ap.add_argument("--platform", default="",
+                    help="cpu|gpu: the process's default device, applied "
+                         "before any device use")
+    ap.add_argument("--cpu-devices", type=int, default=0,
+                    help="slots of a host mesh over the CPU (0 = one)")
     ap.add_argument("--decomposition", default="",
                     help="path to a serialized Decomposition JSON "
                          "(--arch nucleus); omitted = inline offline stage")
@@ -467,6 +474,8 @@ def main() -> None:
                     help="--server: drive the mixed smoke workload over "
                          "HTTP, assert the status schema, and exit")
     args = ap.parse_args()
+    setup_platform(platform=args.platform or None,
+                   cpu_devices=args.cpu_devices or None)
     if args.arch == "nucleus":
         if args.server:
             serve_nucleus_server(port=args.port, cache_dir=args.cache_dir,

@@ -6,15 +6,19 @@ detached leaves (``value_and_grad``) and applies ``adamw.apply_updates``,
 which updates the parameters and moments in place.  The LM steps
 differentiate ``transformer.loss_fn`` (the training route:
 ``online_attention``'s scan, ``remat`` per the config), the GNN step
-``gnn_loss`` and the din step ``din.loss_fn``.
+``gnn_loss`` and the din step ``din.loss_fn``.  ``lm_train_step_sharded``
+is the LM step on parameters and moments placed over a named mesh
+(``distributed.sharding``), equal to the one-device step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as SH
+from .mesh import NamedMesh
 from ..models import dimenet as DIME
 from ..models import din as DIN
 from ..models import egnn as EGNN
@@ -58,6 +62,33 @@ def lm_train_step(params: Dict[str, Any], opt_state: adamw.AdamWState,
     return params, opt_state, {"loss": loss, **metrics}
 
 
+def _mean_grads(micro: Iterable[Tuple[Any, torch.Tensor, torch.Tensor]],
+                n: int, cfg: T.TransformerConfig,
+                device: Optional[torch.device] = None
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The mean over the ``n`` (params, tokens, labels) of ``micro``, in
+    order, of ``loss_fn``'s gradient and of its loss: each gradient is
+    added into float32 buffers (the reference's scan carry; on
+    ``device``, by default beside each leaf), which are then divided by
+    ``n``.  Each item's params are let go before the next is drawn."""
+    acc: Optional[List[torch.Tensor]] = None
+    losses = []
+    for params, tokens, labels in micro:
+        loss, grads = value_and_grad(T.loss_fn, params, tokens, labels, cfg)
+        del params
+        if acc is None:
+            acc = [torch.zeros(g.shape, dtype=torch.float32,
+                               device=g.device if device is None else device)
+                   for g in grads]
+        for a, g in zip(acc, grads):
+            a.add_(g.to(a.device))
+        del grads
+        losses.append(loss.to(acc[0].device))
+    for a in acc:
+        a.div_(n)
+    return acc, torch.stack(losses).mean()
+
+
 def lm_train_step_microbatched(params: Dict[str, Any],
                                opt_state: adamw.AdamWState,
                                batch: Dict[str, torch.Tensor],
@@ -67,25 +98,127 @@ def lm_train_step_microbatched(params: Dict[str, Any],
     rows, in order: each microbatch's gradient is added into float32
     buffers (the reference's scan carry), then divided by ``n_micro``.
     The loss is the microbatches' mean."""
+    mb = batch["tokens"].shape[0] // n_micro
+    grads, loss = _mean_grads(
+        ((params, batch["tokens"][i * mb:(i + 1) * mb],
+          batch["labels"][i * mb:(i + 1) * mb]) for i in range(n_micro)),
+        n_micro, cfg)
+    params, opt_state, metrics = adamw.apply_updates(params, grads,
+                                                     opt_state, opt_cfg)
+    return params, opt_state, {"loss": loss, **metrics}
+
+
+# ---------------------------------------------------------------------------
+# the LM over a named mesh
+# ---------------------------------------------------------------------------
+
+def lm_state_shardings(params: Any, cfg: T.TransformerConfig,
+                       mesh: NamedMesh) -> Tuple[Any, adamw.AdamWState]:
+    """Where a (params, AdamW state) pair lives on ``mesh``: params by
+    ``lm_param_rules`` (as the reference's ``train_lm`` places them), each
+    moment as its parameter, the step on every slot.  ``params`` needs
+    shapes only (tensors, sharded tensors, or ``init_params`` on
+    ``meta``); the result is the ``sharding_tree`` that
+    ``CheckpointManager.restore`` takes."""
+    p_sh = SH.shard_tree(SH.tree_specs(
+        params, SH.lm_param_rules(mesh, moe=cfg.moe is not None), mesh),
+        mesh)
+    return p_sh, adamw.AdamWState(step=SH.NamedSharding(mesh, SH.P()),
+                                  mu=p_sh, nu=p_sh)
+
+
+def init_sharded_state(params: Any) -> adamw.AdamWState:
+    """``adamw.init_state`` of parameters placed over a mesh: float32 zero
+    moments sharded as their parameters, and step 0 on every slot."""
+    mesh = SH.mesh_of(params)
+    step = SH.device_put(
+        torch.zeros((), dtype=torch.int32, device=mesh.slots[0]),
+        SH.NamedSharding(mesh, SH.P()))
+    return adamw.AdamWState(step=step,
+                            mu=SH.zeros_like(params, torch.float32),
+                            nu=SH.zeros_like(params, torch.float32))
+
+
+def _first_slots(mesh: NamedMesh) -> List[torch.device]:
+    """The device of the first slot of each index of the data axes, the
+    indices in ``lm_batch_spec``'s order (the first data axis major)."""
+    data = SH.data_axes(mesh)
+    first: Dict[int, torch.device] = {}
+    for i, dev in enumerate(mesh.slots):
+        c = mesh.coords(i)
+        j = 0
+        for a in data:
+            j = j * mesh.shape[a] + c[a]
+        first.setdefault(j, dev)
+    return [first[j] for j in range(len(first))]
+
+
+def lm_train_step_sharded(params: Any, opt_state: adamw.AdamWState,
+                          batch: Dict[str, torch.Tensor],
+                          cfg: T.TransformerConfig,
+                          opt_cfg: adamw.AdamWConfig, n_micro: int = 1):
+    """One AdamW step on parameters and moments placed over a named mesh
+    (``distributed.sharding.device_put``, ``init_sharded_state``).
+
+    The batch splits by ``lm_batch_spec``: index ``j`` of the data axes
+    takes rows ``j·B/|data|`` on.  For each index in order, the full
+    parameters are gathered onto the device of its first slot, the
+    gradient of its rows (in ``n_micro`` microbatches) is added into
+    float32 buffers on slot 0's device, and the gathered copy is let go:
+    ``lm_train_step_microbatched``'s accumulation over |data|·n_micro
+    microbatches.  The mean's global norm is taken once, then every slot
+    applies AdamW to its own shards with its slice of the gradient, so
+    slots that hold copies of one slice stay bit-identical.  On a
+    one-slot mesh this is ``lm_train_step`` (``_microbatched`` when
+    ``n_micro`` > 1) on the tensors themselves: no gather, no copy.
+
+    Returns (params, opt_state, {"loss", "grad_norm", "lr"}) as
+    ``lm_train_step`` does, the metrics on slot 0's device; the shards
+    are updated in place.
+    """
+    mesh = SH.mesh_of(params)
+    if mesh.size == 1:
+        p, s = SH.local(params, 0), SH.local(opt_state, 0)
+        if n_micro > 1:
+            _, s, metrics = lm_train_step_microbatched(p, s, batch, cfg,
+                                                       opt_cfg, n_micro)
+        else:
+            _, s, metrics = lm_train_step(p, s, batch, cfg, opt_cfg)
+        return params, opt_state._replace(
+            step=opt_state.step.with_shards([s.step])), metrics
+    rows_of = _first_slots(mesh)
     B = batch["tokens"].shape[0]
-    mb = B // n_micro
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in leaves(params)]
-    losses = []
-    for i in range(n_micro):
-        rows = slice(i * mb, (i + 1) * mb)
-        loss, grads = value_and_grad(T.loss_fn, params,
-                                     batch["tokens"][rows],
-                                     batch["labels"][rows], cfg)
-        for a, g in zip(acc, grads):
-            a.add_(g)
-        del grads
-        losses.append(loss)
-    for a in acc:
-        a.div_(n_micro)
-    params, opt_state, metrics = adamw.apply_updates(params, acc, opt_state,
-                                                     opt_cfg)
-    return params, opt_state, {"loss": torch.stack(losses).mean(), **metrics}
+    if B % (len(rows_of) * n_micro):
+        raise ValueError(f"a batch of {B} rows does not split over "
+                         f"{len(rows_of)} data indices x {n_micro} "
+                         f"microbatches")
+    rows = B // len(rows_of)
+    mb = rows // n_micro
+
+    def micro():
+        for j, dev in enumerate(rows_of):
+            full = SH.gather(params, dev)
+            tok = batch["tokens"][j * rows:(j + 1) * rows].to(dev)
+            lab = batch["labels"][j * rows:(j + 1) * rows].to(dev)
+            for k in range(n_micro):
+                yield full, tok[k * mb:(k + 1) * mb], lab[k * mb:(k + 1) * mb]
+            del full
+
+    grads, loss = _mean_grads(micro(), len(rows_of) * n_micro, cfg,
+                              mesh.slots[0])
+    gnorm = adamw.global_norm(grads)
+    flat = leaves(params)
+    steps, metrics = [], None
+    for i, dev in enumerate(mesh.slots):
+        shard_grads = [g[x.index(i)].to(dev) for g, x in zip(grads, flat)]
+        _, s, m = adamw.apply_updates(SH.local(params, i), shard_grads,
+                                      SH.local(opt_state, i), opt_cfg,
+                                      grad_norm=gnorm.to(dev))
+        steps.append(s.step)
+        if i == 0:
+            metrics = m
+    return params, opt_state._replace(
+        step=opt_state.step.with_shards(steps)), {"loss": loss, **metrics}
 
 
 def lm_prefill_step(params: Dict[str, Any], batch: Dict[str, torch.Tensor],

@@ -7,9 +7,15 @@ cpu --steps 30`` trains the smoke config on the CPU; every LM arch of the
 reference trains, at its smoke config by default (``--full`` for the
 published one).  ``--arch din`` trains the DIN CTR model on
 ``RecsysStream`` batches (``train_din``).  The parameters come from each
-model's seeded ``init_params``; the reference's sharding rules are not
-yet ported, so a run uses one device.  The GNN archs have no launcher, as
-in the reference: they train through ``steps.gnn_train_step``.
+model's seeded ``init_params``.  ``train_lm`` places them, and the AdamW
+moments beside them, over a named mesh by the reference's
+``lm_param_rules`` (``mesh=``; by default every visible card on the data
+axis, as the reference's ``make_host_mesh()``) and steps through
+``steps.lm_train_step_sharded``; a one-slot mesh runs the one-device step
+on the tensors themselves.  Checkpoints hold logical arrays, and a resumed
+run restores them onto its own mesh.  ``train_din`` uses one device.  The
+GNN archs have no launcher, as in the reference: they train through
+``steps.gnn_train_step``.
 """
 from __future__ import annotations
 
@@ -25,10 +31,12 @@ from ..data import (RecsysStream, RecsysStreamConfig, TokenStream,
                     TokenStreamConfig)
 from ..device import DeviceLike, resolve_device
 from ..distributed import HeartbeatLog, PreemptionGuard, StragglerMonitor
+from ..distributed import sharding
 from ..models import din as DIN
 from ..models import transformer as T
 from ..optim import adamw
 from . import steps as S
+from .mesh import NamedMesh, make_named_host_mesh
 
 
 @dataclasses.dataclass
@@ -51,11 +59,18 @@ def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
              schedule: str = "cosine",
              resume: bool = False, log_every: int = 20,
              microbatches: int = 1, quiet: bool = False,
-             device: DeviceLike = None) -> TrainRun:
+             device: DeviceLike = None,
+             mesh: Optional[NamedMesh] = None) -> TrainRun:
     """Train ``arch_id`` for ``steps`` steps from seeded parameters;
-    with ``resume`` and a checkpoint in ``ckpt_dir``, from its step on."""
+    with ``resume`` and a checkpoint in ``ckpt_dir``, from its step on.
+
+    The state lives on ``mesh`` (default: ``make_named_host_mesh`` of
+    ``device``), each step's gradient over ``microbatches`` microbatches
+    of every data index's rows."""
     _check_lm(arch_id)
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_named_host_mesh(device=device)
+    dev = mesh.slots[0]
     spec = get_arch(arch_id)
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=steps,
@@ -65,13 +80,16 @@ def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
     stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=Sq,
                                            global_batch=B))
     params = T.init_params(cfg, device=dev)
-    opt_state = adamw.init_state(params)
+    shardings = S.lm_state_shardings(params, cfg, mesh)
+    params = sharding.device_put(params, shardings[0])
+    opt_state = S.init_sharded_state(params)
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     restored_from = None
     if mgr and resume and mgr.latest_step() is not None:
-        (params, opt_state), start_step, _ = mgr.restore((params, opt_state))
+        (params, opt_state), start_step, _ = mgr.restore(
+            (params, opt_state), sharding_tree=shardings)
         restored_from = start_step
 
     monitor = StragglerMonitor()
@@ -84,12 +102,8 @@ def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in stream.batch(step).items()}
             monitor.start_step()
-            if microbatches > 1:
-                params, opt_state, metrics = S.lm_train_step_microbatched(
-                    params, opt_state, batch, cfg, opt_cfg, microbatches)
-            else:
-                params, opt_state, metrics = S.lm_train_step(
-                    params, opt_state, batch, cfg, opt_cfg)
+            params, opt_state, metrics = S.lm_train_step_sharded(
+                params, opt_state, batch, cfg, opt_cfg, microbatches)
             loss = float(metrics["loss"])
             straggle = monitor.end_step()
             losses.append(loss)

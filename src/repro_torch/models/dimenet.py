@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, default_generator
 from .gnn_common import (GraphBatch, gather, masked_segment_sum, mlp_apply,
                          mlp_init, normal, radial_basis, segment_sum)
 
@@ -58,7 +58,7 @@ def init_params(cfg: DimeNetConfig,
     dev = resolve_device(device)
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
+        gen = default_generator(dev)
     d, nb, dt = cfg.d_hidden, cfg.n_bilinear, cfg.dtype
     n_sbf = cfg.n_spherical * cfg.n_radial
     blocks = []

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, default_generator
 from .gnn_common import gather, mlp_apply, mlp_init, normal, segment_sum
 
 RETRIEVAL_CHUNK = 65_536  # candidates scored at a time (3.8 GB of features)
@@ -85,7 +85,7 @@ def init_params(cfg: DINConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
+        gen = default_generator(dev)
     d = cfg.embed_dim
 
     def table(n):

@@ -12,7 +12,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, default_generator
 from .gnn_common import (GraphBatch, gather, masked_segment_sum, mlp_apply,
                          mlp_init, segment_sum)
 
@@ -34,7 +34,7 @@ def init_params(cfg: EGNNConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
+        gen = default_generator(dev)
     d = cfg.d_hidden
     layers = []
     for _ in range(cfg.n_layers):

@@ -11,7 +11,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, default_generator
 from .gnn_common import (GraphBatch, gather, masked_segment_sum, mlp_apply,
                          mlp_init, segment_sum)
 
@@ -34,7 +34,7 @@ def init_params(cfg: GINConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
+        gen = default_generator(dev)
     layers = []
     for i in range(cfg.n_layers):
         d_in = cfg.d_in if i == 0 else cfg.d_hidden

@@ -110,7 +110,9 @@ def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
            device: torch.device) -> torch.Tensor:
     """N(0, 1) float32 samples from ``gen`` times ``scale``, in ``dtype``
-    on ``device``."""
+    on ``device``; on the ``meta`` device an empty tensor, no draw."""
+    if device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * scale).to(device=device, dtype=dtype)

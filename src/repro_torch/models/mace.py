@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, default_generator
 from .gnn_common import (GraphBatch, gather, mlp_apply, mlp_init, normal,
                          radial_basis, segment_sum)
 
@@ -65,7 +65,7 @@ def init_params(cfg: MACEConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
+        gen = default_generator(dev)
     C, dt = cfg.d_hidden, cfg.dtype
 
     def mixer():

@@ -37,7 +37,10 @@ Every stacked leaf is unbound once per pass, so the backward pass stacks
 each leaf's layer gradients once (indexing ``v[i]`` per layer would make
 a zero-filled gradient of the whole stack per layer).  ``dtype`` is a
 torch dtype.  The reference's sharding and cost hints (``cost_unroll``,
-``moe_ep_data``, ``act_specs``) are dropped: the port runs on one device.
+``moe_ep_data``, ``act_specs``) are dropped: they steer XLA inside one
+jitted program, and the model runs eagerly on one device.  Training over
+a named mesh gathers the parameters onto a slot's device and calls these
+functions there (``launch.steps.lm_train_step_sharded``).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, default_generator
 from ..kernels import ops
 from .. import tree
 from ..optim.adamw import AdamWState
@@ -394,6 +397,8 @@ def _dense(gen: torch.Generator, shape, dtype, device, scale=None):
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     s = float(scale if scale is not None else 1.0 / np.sqrt(fan_in))
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     flat = out.view(-1)
     for lo in range(0, flat.numel(), DRAW_CHUNK):
         n = min(DRAW_CHUNK, flat.numel() - lo)
@@ -411,14 +416,14 @@ def init_params(cfg: TransformerConfig,
     carry the reference's float32 ``router`` in every dtype.
 
     ``generator`` (default: seed 0 on the target device) draws the normal
-    samples; it does not reproduce ``jax.random``'s numbers.  Every LM arch
-    of the reference is served and trained; not yet ported are ``din`` and
-    the GNN archs.
+    samples; it does not reproduce ``jax.random``'s numbers.  On the
+    ``meta`` device nothing is drawn: the tree holds the shapes and
+    dtypes alone (what the sharding rules read).
     """
     dev = resolve_device(device)
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
+        gen = default_generator(dev)
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L, dt = cfg.n_layers, cfg.dtype
 

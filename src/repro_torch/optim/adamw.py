@@ -113,12 +113,16 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 
 def apply_updates(params: Any, grads: Any, state: AdamWState,
-                  cfg: AdamWConfig
+                  cfg: AdamWConfig, grad_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step.  Writes ``params`` and the moments in place and
-    returns (params, the state at step + 1, {"grad_norm", "lr"})."""
+    returns (params, the state at step + 1, {"grad_norm", "lr"}).
+
+    ``grad_norm`` is the global norm the clip reads, when ``grads`` is one
+    shard of a larger gradient (the sharded step computes it once over
+    the whole); by default, ``grads``'s own."""
     flat_g = leaves(grads)
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0 else None
     step = state.step + 1
     lr = schedule_lr(cfg, step)

@@ -7,7 +7,9 @@ items and NamedTuple fields in order, ``None`` an empty subtree.
 ``params_from_reference`` carries the reference's parameters across.
 ``flatten_with_paths`` names each leaf by its ``jax.tree_util`` key path
 joined by ``/`` (``"[0]/['layers']/['wq']"``, ``"[1]/.step"``), the keys
-of a checkpoint's ``arrays.npz``.
+of a checkpoint's ``arrays.npz``; with ``plain=True``, by its keys, indices
+and field names alone (``"0/layers/wq"``, ``"1/step"``), the paths the
+sharding rules match.
 """
 from __future__ import annotations
 
@@ -23,26 +25,31 @@ def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _children(node: Any) -> Iterator[Tuple[str, Any]]:
+def _children(node: Any, plain: bool = False
+              ) -> Iterator[Tuple[str, Any]]:
     """(path element, child) of an inner node in jax's order; nothing for
-    a leaf or None (callers tell those apart)."""
+    a leaf or None (callers tell those apart).  The element is jax's
+    (``['wq']``, ``.step``, ``[0]``), or with ``plain`` the bare key,
+    field name or index."""
     if isinstance(node, dict):
         for k in sorted(node):
-            yield f"[{k!r}]", node[k]
+            yield (str(k) if plain else f"[{k!r}]"), node[k]
     elif _is_namedtuple(node):
         for name, v in zip(node._fields, node):
-            yield f".{name}", v
+            yield (name if plain else f".{name}"), v
     elif isinstance(node, (tuple, list)):
         for i, v in enumerate(node):
-            yield f"[{i}]", v
+            yield (str(i) if plain else f"[{i}]"), v
 
 
 def _is_inner(node: Any) -> bool:
     return isinstance(node, (dict, tuple, list))
 
 
-def flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
-    """(key path, leaf) of every leaf, in jax's leaf order."""
+def flatten_with_paths(tree: Any, plain: bool = False
+                       ) -> List[Tuple[str, Any]]:
+    """(key path, leaf) of every leaf, in jax's leaf order; ``plain``
+    paths join the bare keys (``layers/wq``)."""
     out: List[Tuple[str, Any]] = []
 
     def walk(node, path):
@@ -51,7 +58,7 @@ def flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
         if not _is_inner(node):
             out.append(("/".join(path), node))
             return
-        for part, child in _children(node):
+        for part, child in _children(node, plain):
             walk(child, path + (part,))
     walk(tree, ())
     return out

@@ -50,6 +50,8 @@ from repro_torch.launch.mesh import Mesh
 
 # the facade file's parity checks, run here on its two costliest cells
 from test_torch_facade import HEAVY, JSON_TRIPLES, check_cell, check_json
+# the reference's shared peel loop and its pool, for this module's tests
+from test_torch_facade import reference_pool  # noqa: F401
 
 # one intra-op thread: the suite runs its workers on shared cores, and
 # idle OpenMP threads spin against the other workers' tests
@@ -396,7 +398,7 @@ def test_auto_upgrades_the_build_under_a_budget():
 
 @pytest.mark.parametrize("gname", HEAVY)
 def test_every_local_triple_matches_reference(gname):
-    check_cell(gname, 2, 3)
+    check_cell(gname, 2, 3, prefetch=[(g, 2, 3) for g in HEAVY])
 
 
 @pytest.mark.parametrize("gname,triple", [(g, t) for g in HEAVY

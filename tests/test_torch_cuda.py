@@ -604,6 +604,113 @@ def test_train_step_on_card(cuda_device):
         assert flash_attention(q, q, q, True).shape == q.shape
 
 
+def _sharded_smoke(mesh, dev):
+    """minicpm-2b's smoke params (seeded on the CPU) placed over ``mesh``
+    by ``lm_param_rules``, their AdamW state, the config and a batch of 4
+    rows on ``dev``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("minicpm-2b").make_smoke_config()
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    params = SH.device_put(params, S.lm_state_shardings(params, cfg,
+                                                        mesh)[0])
+    toks = torch.randint(0, cfg.vocab, (4, 41),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    return params, S.init_sharded_state(params), cfg, batch
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_card(cuda_device):
+    """A (2, 2) mesh over the card's slots (the distinct cards, repeated in
+    order): two sharded steps equal two ``lm_train_step_microbatched`` of
+    2 row groups on the card bit for bit, and the first equals the CPU's
+    (2, 2) step (float32, TF32 off): the loss to rel 1e-4, mu (linear in
+    the gradient) by ||d|| / ||cpu|| <= 1e-4 per leaf, the params to
+    rtol 1e-4, atol 1e-5 outside Adam's eps regime (sqrt(nu_hat) < 1e-5,
+    where a gradient's rounding moves a step by up to lr) and to lr
+    inside it, the rule of ``tests/test_torch_train.py``; slots holding
+    one slice hold equal bits; no flash launch."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for name, mesh, dev in (
+                ("card", make_mesh((2, 2), ("data", "model")), cuda_device),
+                ("cpu", make_mesh((2, 2), ("data", "model"), "cpu"), "cpu")):
+            params, state, cfg, batch = _sharded_smoke(mesh, dev)
+            one = SH.gather((params, state), dev)
+            before = launch_counts["flash_attention"]
+            for i in range(2):
+                params, state, m = S.lm_train_step_sharded(params, state,
+                                                           batch, cfg, opt)
+                one_p, one_s, om = S.lm_train_step_microbatched(
+                    one[0], one[1], batch, cfg, opt, 2)
+                one = (one_p, one_s)
+                assert torch.equal(m["loss"], om["loss"])
+                got = SH.gather((params, state), "cpu")
+                assert all(torch.equal(a, b.cpu()) for a, b in
+                           zip(leaves(got), leaves(one)))
+                if i == 0:
+                    out[name] = (got, float(m["loss"]))
+            assert launch_counts["flash_attention"] == before
+            for st in leaves((params, state)):
+                first = {}
+                for j, shard in enumerate(st.shards):
+                    key = tuple((x.start, x.stop) for x in st.index(j))
+                    assert torch.equal(first.setdefault(key, shard), shard)
+        (card, card_loss), (cpu, cpu_loss) = out["card"], out["cpu"]
+        assert card_loss == pytest.approx(cpu_loss, rel=1e-4)
+        for a, b in zip(leaves(card[1].mu), leaves(cpu[1].mu)):
+            assert _rel_norm(a, b) <= 1e-4
+        bc2 = 1 - opt.b2
+        for i, (a, b, nu) in enumerate(zip(leaves(card[0]), leaves(cpu[0]),
+                                           leaves(cpu[1].nu))):
+            regime = torch.sqrt(nu / bc2) < 1e-5
+            torch.testing.assert_close(a[~regime], b[~regime], rtol=1e-4,
+                                       atol=1e-5, msg=f"param leaf {i}")
+            assert bool(((a - b)[regime].abs() <= opt.lr).all())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_remesh_restore_on_card(cuda_device, tmp_path):
+    """A state saved from a (2, 2) mesh on the card restores onto (4, 1),
+    (1, 4) and (1, 1) meshes on the card: each leaf placed by its spec
+    and, gathered, the saved tensor bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import leaves
+
+    params, state, cfg, _ = _sharded_smoke(
+        make_mesh((2, 2), ("data", "model")), cuda_device)
+    saved = leaves(SH.gather((params, state), "cpu"))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, (params, state), blocking=True)
+    for sizes in ((4, 1), (1, 4), (1, 1)):
+        mesh = make_mesh(sizes, ("data", "model"))
+        sh = S.lm_state_shardings(params, cfg, mesh)
+        back, step, _ = mgr.restore((params, state), sharding_tree=sh)
+        assert step == 1
+        for st, want in zip(leaves(back), saved):
+            assert st.mesh == mesh and st.shards[0].device.type == "cuda"
+            assert torch.equal(st.gather("cpu"), want)
+
+
 def _rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
     want = want.double()
     return float((got.double().cpu() - want).norm()

@@ -24,9 +24,12 @@ The reference runs as its own tests run it on the CPU.  Its results are
 computed once per cell and shared by the tests of this file, and its eager
 gather peel loop, a pure function of the problem and the schedule, runs
 once per cell and method for the triples that differ only in their
-hierarchy (each triple's hierarchy is still the reference's own).
+hierarchy (each triple's hierarchy is still the reference's own).  It
+runs on a pool of threads, ahead of the tests that read it.
 """
 import json
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from unittest import mock
 
 import jax.numpy as jnp
@@ -67,9 +70,34 @@ LOCAL = NucleusConfig.legal_combinations()
 SHARDED_MESH = Mesh(("cpu",) * 3)
 JSON_TRIPLES = [("exact", "dense", "fused"), ("exact", "gather", "replay"),
                 ("exact", "nh", "two_phase")]
-_CACHE = {}
-_PEELS = {}
 _PEEL_LOOP = jpeel._peel_loop
+# The reference's side of a cell costs mostly XLA compiles of its eager
+# ops at new shapes, which release the interpreter lock: it runs on a few
+# threads, a cell's work submitted when a test first asks for a cell of
+# its file, while the main thread checks the port.
+_POOL = ThreadPoolExecutor(max_workers=4, thread_name_prefix="reference")
+_SUBMITTED = []
+_LOCK = threading.Lock()
+_MEMO = {}
+
+
+def _once(key, fn, keep=None):
+    """``fn()``, computed once per ``key`` whichever thread asks first;
+    the others wait for it (and see its exception).  ``keep`` is held
+    beside the value (an object whose ``id`` is part of the key)."""
+    with _LOCK:
+        entry = _MEMO.get(key)
+        owner = entry is None
+        if owner:
+            entry = _MEMO[key] = (keep, Future())
+    fut = entry[1]
+    if owner:
+        try:
+            fut.set_result(fn())
+        except BaseException as e:
+            fut.set_exception(e)
+            raise
+    return fut.result()
 
 
 def _shared_peel_loop(problem, schedule):
@@ -77,18 +105,28 @@ def _shared_peel_loop(problem, schedule):
     its eager loop compiles and dispatches every op of every round, the
     costliest part of a cell, and gather/none, /replay, /two_phase and
     /basic all peel alike."""
-    key = (id(problem), schedule)
-    if key not in _PEELS:
-        _PEELS[key] = (problem, _PEEL_LOOP(problem, schedule))
-    return _PEELS[key][1]
+    return _once(("peel", id(problem), schedule),
+                 lambda: _PEEL_LOOP(problem, schedule), keep=problem)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_pool():
+    """The shared peel loop in place of the reference's for the module's
+    tests (patched once: the pool's threads call it concurrently); at
+    the end, pending reference work is dropped and running work waited
+    for.  A failed task's exception is read by the test that asks for
+    its result (``_once``)."""
+    with mock.patch.object(jpeel, "_peel_loop", _shared_peel_loop):
+        yield
+        for f in _SUBMITTED:
+            f.cancel()
+        wait(_SUBMITTED)
+        _SUBMITTED.clear()
 
 
 def _cell(gname, r, s):
-    """(port problem, reference problem on the same arrays, {triple:
-    (port decomposition, reference decomposition)}, {reference trees}),
-    built once."""
-    key = (gname, r, s)
-    if key not in _CACHE:
+    """(port problem, reference problem on the same arrays), built once."""
+    def build():
         g = golden_suite()[gname](device="cpu")
         pp = build_problem(g, r, s, device="cpu")
         jp = JProblem(g=JGraph(n=g.n, edges=jnp.asarray(g.edges.numpy())),
@@ -96,54 +134,85 @@ def _cell(gname, r, s):
                       **{f: jnp.asarray(getattr(pp, f).numpy())
                          for f in FIELDS},
                       orientation=pp.orientation)
-        _CACHE[key] = (pp, jp, {}, {})
-    return _CACHE[key]
+        return pp, jp
+    return _once(("cell", gname, r, s), build)
+
+
+def _reference(gname, r, s, triple):
+    """The reference's decompose of a non-sharded triple, once."""
+    m, b, h = triple
+    return _once(("ref", gname, r, s, triple), lambda: jcore.decompose(
+        _cell(gname, r, s)[1],
+        jcore.NucleusConfig(r=r, s=s, method=m, backend=b, hierarchy=h)))
 
 
 def _pair(gname, r, s, triple):
     """(port decomposition, what it is held to): the reference's
     decompose, or for a sharded triple the port's dense one."""
-    pp, jp, decs, _ = _cell(gname, r, s)
-    if triple not in decs:
+    def run():
+        pp = _cell(gname, r, s)[0]
         m, b, h = triple
         if b == "sharded":
             got = decompose(pp, NucleusConfig(
                 r=r, s=s, method=m, backend=b, hierarchy=h,
                 mesh=SHARDED_MESH), device="cpu")
-            want = _pair(gname, r, s, (m, "dense", h))[0]
-        else:
-            got = decompose(pp, NucleusConfig(r=r, s=s, method=m, backend=b,
-                                              hierarchy=h), device="cpu")
-            with mock.patch.object(jpeel, "_peel_loop", _shared_peel_loop):
-                want = jcore.decompose(jp, jcore.NucleusConfig(
-                    r=r, s=s, method=m, backend=b, hierarchy=h))
-        decs[triple] = (got, want)
-    return decs[triple]
+            return got, _pair(gname, r, s, (m, "dense", h))[0]
+        got = decompose(pp, NucleusConfig(r=r, s=s, method=m, backend=b,
+                                          hierarchy=h), device="cpu")
+        return got, _reference(gname, r, s, triple)
+    return _once(("pair", gname, r, s, triple), run)
 
 
 def _ref_tree(gname, r, s, want):
     """The reference's tree.  A two_phase/basic tree is a function of the
     problem and the core alone, so equal cores share one tree (the
     reference builds it per level with jitted connectivity, the costliest
-    step here); nh comes first in the loop, so its own tree is the one
-    kept and its to_json() reuses it."""
+    step here)."""
     h = want.config.hierarchy
     if h not in ("two_phase", "basic"):
         return want.tree
-    trees = _cell(gname, r, s)[3]
-    key = (h, np.asarray(want.core).astype(np.int64).tobytes())
-    if key not in trees:
-        trees[key] = want.tree
-    return trees[key]
+    key = ("tree", gname, r, s, h,
+           np.asarray(want.core).astype(np.int64).tobytes())
+    return _once(key, lambda: want.tree)
+
+
+def _reference_work(gname, r, s, triples):
+    """The reference's decompose of each triple in order, and its
+    two_phase or basic tree (a fused or replay tree is left to the test:
+    building one fills the decomposition's forest, which the test reads
+    first)."""
+    for triple in triples:
+        want = _reference(gname, r, s, triple)
+        if triple[2] in ("two_phase", "basic"):
+            _ref_tree(gname, r, s, want)
+
+
+def _prefetch(cells):
+    """Submit the reference's work of each cell not yet submitted, in
+    order: first each method's gather triples as one task (their shared
+    peel loop is the longest), then every dense and nh triple alone."""
+    for gname, r, s in cells:
+        with _LOCK:
+            if ("prefetch", gname, r, s) in _MEMO:
+                continue
+            _MEMO[("prefetch", gname, r, s)] = None
+        local = [t for t in LOCAL if t[1] != "sharded"]
+        tasks = [[t for t in local if t[:2] == (m, "gather")]
+                 for m in ("exact", "approx")]
+        tasks += [[t] for t in local if t[1] != "gather"]
+        _SUBMITTED.extend(_POOL.submit(_reference_work, gname, r, s, task)
+                          for task in tasks)
 
 
 def _opt(x):
     return None if x is None else np.asarray(x)
 
 
-def check_cell(gname, r, s):
+def check_cell(gname, r, s, prefetch=()):
     """Every local triple of the port == the reference's decompose; every
-    sharded triple == the port's dense one."""
+    sharded triple == the port's dense one.  The reference's work of this
+    cell, then of the ``prefetch`` cells, starts on the pool."""
+    _prefetch([(gname, r, s), *prefetch])
     pp = _cell(gname, r, s)[0]
     if pp.n_r == 0:
         pytest.skip("no r-cliques")
@@ -189,7 +258,7 @@ def check_cell(gname, r, s):
 @pytest.mark.parametrize("gname,r,s", PARITY_CELLS,
                          ids=[f"{g}_r{r}s{s}" for g, r, s in PARITY_CELLS])
 def test_every_local_triple_matches_reference(gname, r, s):
-    check_cell(gname, r, s)
+    check_cell(gname, r, s, prefetch=PARITY_CELLS)
 
 
 FIXTURES = sorted(f"{g}_r{r}s{s}.json" for g in GRAPHS for r, s in GOLDEN_RS)
@@ -308,7 +377,7 @@ def test_oracles_and_baselines_match_reference(gname):
                                   build_hierarchy_interleaved, cut_hierarchy,
                                   nh_full, nuclei_without_hierarchy,
                                   same_partition)
-    pp, jp, _, _ = _cell(gname, 2, 3)
+    pp, jp = _cell(gname, 2, 3)
     core, tree, rho = nh_full(pp)
     jcore_, jtree, jrho = jnh.nh_full(jp)
     assert rho == jrho

@@ -63,7 +63,8 @@ def test_port_sources_found():
                 "models/egnn.py", "models/dimenet.py", "models/mace.py",
                 "configs/din.py", "configs/gnn_shapes.py",
                 "configs/gin_tu.py", "configs/egnn.py", "configs/dimenet.py",
-                "configs/mace.py", "graph/sampler.py", "graph/unionfind.py"):
+                "configs/mace.py", "graph/sampler.py", "graph/unionfind.py",
+                "distributed/sharding.py", "launch/platform.py"):
         assert mod in rel, mod
 
 
@@ -133,7 +134,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.din, repro_torch.models.gin, "
             "repro_torch.models.egnn, repro_torch.models.dimenet, "
             "repro_torch.models.mace, repro_torch.configs.gnn_shapes, "
-            "repro_torch.graph.sampler, repro_torch.launch.steps; "
+            "repro_torch.graph.sampler, repro_torch.launch.steps, "
+            "repro_torch.distributed.sharding, repro_torch.launch.platform; "
             "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")
