@@ -15,8 +15,10 @@ moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, LM training
 of minicpm-2b at full width (AdamW steps, checkpoints), the recsys (din)
 and GNN (gin-tu, egnn, dimenet, mace) families at their published widths,
 and last minicpm-2b's training sharded over a (2, 2) named mesh with the
-elastic re-mesh restore; the last three run no kernel.  Every kernel of those paths is checked
-against its plain-torch version on the card.
+elastic re-mesh restore (the last three run no kernel), and last the
+port's tooling (the planner calibration, the build-budget gate, the dry
+run).  Every kernel of those paths is checked against its plain-torch
+version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
   1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc),
@@ -144,7 +146,16 @@ Phases (any failure ends the run with a non-zero exit):
      step 2, the checkpoint restored with ``sharding_tree`` onto (4, 1),
      (1, 4) and (1, 1) bit for bit and a run resumed on (1, 1) equal to an
      uninterrupted one; ``setup_platform``'s record.  No kernel launched;
- 15. a JSON line of per-kernel numbers, the card's name and power limit,
+ 15. the tooling (``phase_tooling``): ``calibrate_planner --quick`` on
+     the card into a temporary profile, which ``resolve_plan`` then
+     reads, the megakernel launched exactly on the rounds its races ran,
+     and the committed ``cuda`` entry the one the default path loads;
+     ``check_build_budget`` on the card (both digests equal the ba4k
+     fingerprint, the chunked build inside its budget); the dry run of
+     minicpm-2b's train_4k on a device-less (2, 2) mesh, its slot bytes
+     equal to phase 14's and its FLOPs per token within 5 % of 6ND +
+     attention;
+ 16. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -2873,6 +2884,121 @@ def phase_sharded_train(seed: int):
             "param_err": worst_out}
 
 
+TOOL_MESH = (2, 2)       # phase 15 (c): the dry run's mesh, phase 14's
+
+
+def phase_tooling(slot_bytes: int):
+    """Phase 15: the port's tooling on the card.  (a) ``calibrate_planner
+    --quick`` into a temporary profile: a ``cuda`` entry with an int
+    ``tiny_nr`` and a bool ``kernel_default``, which ``resolve_plan``
+    then names (``planner_profile['cuda']``) among its reasons; and the
+    committed file's ``cuda`` entry is the one the default path loads.
+    (b) ``check_build_budget`` on the card passes: both digests, the
+    accounted bytes and the device peak delta printed.  (c) The dry run of
+    minicpm-2b's train_4k on a device-less (2, 2) mesh: its per-slot
+    parameter + moment bytes equal phase 14's measured slot bytes, byte
+    for byte, and its FLOPs per token are within 5 % of the analytic 6ND
+    + attention count.  (d) The megakernel's launches in (a) equal the
+    rounds the calibration's races ran (the counter is reset before (a),
+    so they are apart from the main path's)."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.core import backends as B
+    from repro_torch.core import planner_profile as PP
+    from repro_torch.core.api import NucleusConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.tools import calibrate_planner as CP
+    from repro_torch.tools import check_build_budget as CB
+
+    # -- (a) + (d) the calibration ------------------------------------------
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "planner_profile.json")
+        reset_launch_counts()
+        res = CP.calibrate("cuda", quick=True, out=out,
+                           log=lambda m: log(f"[tooling] {m}"))
+        counts = dict(launch_counts)
+        with open(out) as f:
+            entry = json.load(f)["profiles"]["cuda"]
+        PP.reset_cache()
+        plan = B.resolve_plan(NucleusConfig(backend="auto"), n_r=1000,
+                              n_s=1000, n_sub=3, device_kind="cuda",
+                              profile_path=out)
+    PP.reset_cache()
+    cal_s = time.perf_counter() - t
+    require(type(entry["tiny_nr"]) is int and
+            type(entry["kernel_default"]) is bool,
+            f"the calibration's cuda entry is malformed: {entry}")
+    require(any("planner_profile['cuda']" in r for r in plan.reasons),
+            f"resolve_plan did not read the calibrated entry: "
+            f"{plan.reasons}")
+    with open(PP.PROFILE_PATH) as f:
+        committed = json.load(f)["profiles"]["cuda"]
+    loaded, source = PP.profile_entry("cuda", "cuda")
+    require(loaded == committed and source == "planner_profile['cuda']",
+            "the default path does not load the committed cuda entry")
+    require(counts["peel_round"] == res["kernel_rounds"] > 0,
+            f"megakernel launches {counts['peel_round']} in the "
+            f"calibration != the rounds its races ran "
+            f"{res['kernel_rounds']}")
+    require(counts["segment_sum"] == counts["tricount"] ==
+            counts["flash_attention"] == 0,
+            f"the calibration launched another kernel: {counts}")
+    log(f"[tooling] (a) calibrate_planner --quick: tiny_nr="
+        f"{entry['tiny_nr']} kernel_default={entry['kernel_default']} in "
+        f"{cal_s:.2f} s; the committed entry (tiny_nr="
+        f"{committed['tiny_nr']}, kernel_default="
+        f"{committed['kernel_default']}, measured on "
+        f"{committed['measured']['power_limit']}) is the default path's")
+    log(f"[tooling] (d) megakernel launches in the calibration "
+        f"{counts['peel_round']} == the rounds its races ran "
+        f"{res['kernel_rounds']}")
+
+    # -- (b) the build-budget gate ------------------------------------------
+    t = time.perf_counter()
+    gate = CB.gate("cuda", log=lambda m: log(f"[tooling] {m}"))
+    gate_s = time.perf_counter() - t
+    require(not gate["failures"], f"the build gate failed: "
+            f"{gate['failures']}")
+    ch = gate["chunked"]
+    log(f"[tooling] (b) check_build_budget on the card in {gate_s:.2f} s: "
+        f"eager digest {gate['eager']['digest']}, chunked digest "
+        f"{ch['digest']}, accounted {ch['accounted_bytes']} B, device peak "
+        f"delta {ch['peak_bytes']} B (eager {gate['eager']['peak_bytes']} "
+        f"B), budget {CB.BUDGET} B")
+
+    # -- (c) the dry run against phase 14 ------------------------------------
+    t = time.perf_counter()
+    rec = D.run_cell(LM_ARCH, "train_4k",
+                     mesh=AbstractMesh(TOOL_MESH, DM))
+    dry_s = time.perf_counter() - t
+    kinds = rec["memory"]["argument_bytes_by_kind"]
+    dry_slot = kinds["params"] + kinds["opt_state"]
+    require(dry_slot == slot_bytes, f"the dry run's slot bytes {dry_slot} "
+            f"!= phase 14's measured {slot_bytes}")
+    spec = get_arch(LM_ARCH)
+    cfg = spec.make_config()
+    dims = spec.shape("train_4k").dims
+    per_tok = rec["cost"]["model_flops"] / (dims["global_batch"] *
+                                            dims["seq_len"])
+    want = D.lm_train_flops_per_token(cfg, dims["seq_len"])
+    require(abs(per_tok / want - 1) < 0.05, f"the dry run's FLOPs per "
+            f"token {per_tok:.4g} are not within 5 % of {want:.4g}")
+    log(f"[tooling] (c) dry run of {LM_ARCH} train_4k on {TOOL_MESH} in "
+        f"{dry_s:.2f} s: {dry_slot} B of params + moments a slot == phase "
+        f"14's {slot_bytes} B; model FLOPs per token {per_tok:.6g} vs "
+        f"6ND + attention {want:.6g} (ratio {per_tok / want:.5f}; 6ND alone "
+        f"{6 * cfg.param_count():.6g}); with remat's recompute "
+        f"{rec['cost']['flops_total'] / (dims['global_batch'] * dims['seq_len']):.6g}; "
+        f"temp {rec['memory']['temp_bytes']} B over a slot's "
+        f"{dims['global_batch'] // rec['row_groups']} rows; transfers "
+        f"{rec['collectives']}")
+    return {"calibrate_s": cal_s, "gate_s": gate_s, "dryrun_s": dry_s,
+            "kernel_rounds": res["kernel_rounds"]}
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -3250,7 +3376,11 @@ def main() -> int:
                 f"B={SHARD_B}, S=4096): the online scan"}
     phase_t = log_phase(14, phase_t)
 
-    # -- phase 15: the result lines -----------------------------------------
+    # -- phase 15: the tooling on the card ------------------------------------
+    phase_tooling(shard["slot_bytes"])
+    phase_t = log_phase(15, phase_t)
+
+    # -- phase 16: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

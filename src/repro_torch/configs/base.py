@@ -1,15 +1,18 @@
 """Arch registry plumbing: every config module registers an ArchSpec
 (counterpart of ``repro.configs.base``).
 
-An ArchSpec knows how to build (a) the FULL published config and (b) a
-REDUCED smoke config.  The reference's third member, ``input_specs`` (the
-``jax.ShapeDtypeStruct`` stand-ins of its dry run), and its helper ``sds``
-have no counterpart: the port has no dry run.
+An ArchSpec knows how to build (a) the FULL published config, (b) a
+REDUCED smoke config and (c) ``input_specs(cfg, cell)``: the cell's inputs
+(its batch, and a decode cell's cache) as ``meta`` tensors of the
+reference's shapes and dtypes, which ``launch.dryrun`` runs the steps on
+without allocating.  ``meta_spec`` is the reference's ``sds``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
 
 _REGISTRY: Dict[str, "ArchSpec"] = {}
 
@@ -31,6 +34,7 @@ class ArchSpec:
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: Tuple[ShapeCell, ...]
+    input_specs: Callable[[Any, ShapeCell], Dict[str, Any]]
     notes: str = ""
 
     def shape(self, name: str) -> ShapeCell:
@@ -53,6 +57,13 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 def all_archs():
     return dict(_REGISTRY)
+
+
+def meta_spec(shape: Sequence[int],
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on ``meta``: shapes only,
+    nothing allocated (the reference's ``sds``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:

@@ -10,7 +10,7 @@ import torch
 
 from ..models.transformer import MLAConfig, MoEConfig, TransformerConfig
 from .base import ArchSpec, register
-from .lm_common import lm_shapes
+from .lm_common import lm_input_specs, lm_shapes
 
 
 def make_config() -> TransformerConfig:
@@ -34,5 +34,5 @@ def make_smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id="deepseek-v2-lite-16b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=lm_shapes(),
+    shapes=lm_shapes(), input_specs=lm_input_specs,
     notes="MLA (kv_lora=512, rope_dim=64) + MoE 64e top-6 + 2 shared"))

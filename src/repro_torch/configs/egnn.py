@@ -2,7 +2,7 @@
 [arXiv:2102.09844; paper].  Scalar-distance messages + coord updates."""
 from ..models.egnn import EGNNConfig
 from .base import ArchSpec, register
-from .gnn_shapes import GNN_SHAPES
+from .gnn_shapes import GNN_SHAPES, gnn_input_specs
 
 
 def make_config() -> EGNNConfig:
@@ -16,5 +16,5 @@ def make_smoke_config() -> EGNNConfig:
 SPEC = register(ArchSpec(
     arch_id="egnn", family="gnn",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=GNN_SHAPES,
+    shapes=GNN_SHAPES, input_specs=gnn_input_specs("egnn"),
     notes="E(n)-equivariant; positions synthetic on citation/product graphs"))

@@ -2,7 +2,7 @@
 [arXiv:1810.00826; paper].  SpMM regime: gather -> segment_sum."""
 from ..models.gin import GINConfig
 from .base import ArchSpec, register
-from .gnn_shapes import GNN_SHAPES
+from .gnn_shapes import GNN_SHAPES, gnn_input_specs
 
 
 def make_config() -> GINConfig:
@@ -19,5 +19,5 @@ def make_smoke_config() -> GINConfig:
 SPEC = register(ArchSpec(
     arch_id="gin-tu", family="gnn",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=GNN_SHAPES,
+    shapes=GNN_SHAPES, input_specs=gnn_input_specs("gin-tu"),
     notes="sum-aggregation isomorphism network; learnable eps"))

@@ -8,13 +8,16 @@ additionally gets capacity-capped triplet lists (cap recorded here).
 ``cfg_for_cell`` is the reference's per-cell config rule (its dry run's
 ``_gnn_cfg_for_cell``): ``d_in`` from the cell's features, the classes
 (``n_classes`` or ``n_out``) and ``graph_level`` from the cell.
+``gnn_input_specs`` gives a cell's batch on ``meta``, as the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict
 
-from .base import ArchSpec, ShapeCell
+import torch
+
+from .base import ArchSpec, ShapeCell, meta_spec
 
 # static sampler capacities for minibatch_lg (fanout 15-10 over 1024 seeds)
 _MB_NODES = 1024 * (1 + 15 + 150)      # 169,984
@@ -69,3 +72,44 @@ def cfg_for_cell(spec: ArchSpec, cell: ShapeCell) -> Any:
     if "n_out" in fields:
         kw["n_out"] = n_out
     return dataclasses.replace(cfg, **kw)
+
+
+def gnn_input_specs(arch_id: str):
+    """The arch's ``input_specs``: a cell's padded batch on ``meta`` (a
+    molecule cell is ``batch`` graphs side by side), with positions for
+    the equivariant archs and the capped triplet lists for dimenet, and
+    the step's ``n_graphs`` and ``node_level``."""
+    def specs(cfg: Any, cell: ShapeCell) -> Dict[str, Any]:
+        d = cell.dims
+        if cell.name == "molecule":
+            N = d["n_nodes"] * d["batch"]
+            E = d["n_edges"] * d["batch"]
+            n_graphs = d["batch"]
+            node_level = False
+        else:
+            N, E = d["n_nodes"], d["n_edges"]
+            n_graphs = N          # node-level: identity "pooling"
+            node_level = True
+        batch = {
+            "nodes": meta_spec((N, d["d_feat"])),
+            "edge_src": meta_spec((E,), torch.int32),
+            "edge_dst": meta_spec((E,), torch.int32),
+            "node_mask": meta_spec((N,), torch.bool),
+            "edge_mask": meta_spec((E,), torch.bool),
+            "graph_id": meta_spec((N,), torch.int32),
+        }
+        if needs_pos(arch_id):
+            batch["pos"] = meta_spec((N, 3))
+        if needs_triplets(arch_id):
+            T = E * d["triplet_cap"]
+            batch["triplet_kj"] = meta_spec((T,), torch.int32)
+            batch["triplet_ji"] = meta_spec((T,), torch.int32)
+            batch["triplet_mask"] = meta_spec((T,), torch.bool)
+        if node_level:
+            batch["labels"] = meta_spec((N,), torch.int32)
+            batch["label_mask"] = meta_spec((N,))
+        else:
+            batch["energy"] = meta_spec((n_graphs, 1))
+        return {"batch": batch, "n_graphs": n_graphs,
+                "node_level": node_level}
+    return specs

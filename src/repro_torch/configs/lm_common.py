@@ -1,9 +1,12 @@
-"""Shared shape grid of the LM-family architectures (counterpart of
-``repro.configs.lm_common``; its ``lm_input_specs`` belongs to the
-reference's dry run and has no counterpart)."""
+"""Shared shape grid and input specs of the LM-family architectures
+(counterpart of ``repro.configs.lm_common``)."""
 from __future__ import annotations
 
-from .base import ShapeCell
+from typing import Any, Dict
+
+import torch
+
+from .base import ShapeCell, meta_spec
 
 FULL_ATTN_SKIP = ("pure full-attention architecture (GQA/MLA softmax "
                   "attention): long_500k requires sub-quadratic attention; "
@@ -22,3 +25,29 @@ def lm_shapes() -> tuple:
                   {"seq_len": 524288, "global_batch": 1},
                   skip_reason=FULL_ATTN_SKIP),
     )
+
+
+def lm_input_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    """train: {"batch": tokens, labels (B, S) int32}; prefill: {"batch":
+    tokens}; decode: {"tokens" (B, 1), "cache" (the stacked cache of
+    ``transformer.init_cache``, S slots), "cache_len" () int32}."""
+    B = cell.dims["global_batch"]
+    S = cell.dims["seq_len"]
+    if cell.kind == "train":
+        return {"batch": {"tokens": meta_spec((B, S), torch.int32),
+                          "labels": meta_spec((B, S), torch.int32)}}
+    if cell.kind == "prefill":
+        return {"batch": {"tokens": meta_spec((B, S), torch.int32)}}
+    if cell.kind == "decode":
+        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        if cfg.mla is not None:
+            r, pr = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
+            cache = (meta_spec((L, B, S, r), cfg.dtype),
+                     meta_spec((L, B, S, 1, pr), cfg.dtype))
+        else:
+            cache = (meta_spec((L, B, S, Hkv, D), cfg.dtype),
+                     meta_spec((L, B, S, Hkv, D), cfg.dtype))
+        return {"tokens": meta_spec((B, 1), torch.int32),
+                "cache": cache,
+                "cache_len": meta_spec((), torch.int32)}
+    raise ValueError(cell.kind)

@@ -3,7 +3,7 @@ equivariance=E(3)-ACE [arXiv:2206.07697].  Cartesian-irrep tensor products
 (exactly equivariant; see the rotation property tests)."""
 from ..models.mace import MACEConfig
 from .base import ArchSpec, register
-from .gnn_shapes import GNN_SHAPES
+from .gnn_shapes import GNN_SHAPES, gnn_input_specs
 
 
 def make_config() -> MACEConfig:
@@ -19,5 +19,5 @@ def make_smoke_config() -> MACEConfig:
 SPEC = register(ArchSpec(
     arch_id="mace", family="gnn",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=GNN_SHAPES,
+    shapes=GNN_SHAPES, input_specs=gnn_input_specs("mace"),
     notes="higher-order equivariant message passing, correlation order 3"))

@@ -8,7 +8,7 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from .base import ArchSpec, register, pad_vocab
-from .lm_common import lm_shapes
+from .lm_common import lm_input_specs, lm_shapes
 
 
 def make_config() -> TransformerConfig:
@@ -28,5 +28,5 @@ def make_smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id="minicpm-2b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=lm_shapes(),
+    shapes=lm_shapes(), input_specs=lm_input_specs,
     notes="dense MHA decoder (kv=36); WSD schedule; head_dim=64"))

@@ -9,7 +9,7 @@ import torch
 
 from ..models.transformer import MoEConfig, TransformerConfig
 from .base import ArchSpec, register
-from .lm_common import lm_shapes
+from .lm_common import lm_input_specs, lm_shapes
 
 
 def make_config() -> TransformerConfig:
@@ -31,5 +31,5 @@ def make_smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id="moonshot-v1-16b-a3b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=lm_shapes(),
+    shapes=lm_shapes(), input_specs=lm_input_specs,
     notes="MoE 64e top-6 + 2 shared, expert parallel over 'model'"))

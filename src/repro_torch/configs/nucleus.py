@@ -9,8 +9,10 @@ sharded peel (``core.distributed``) splits the s-clique axis into slabs
 across a device mesh and keeps the r-clique state once per device, with
 one (n_r,) reduction per peel round.
 """
+import torch
+
 from ..core.schedule import PeelSchedule
-from .base import ArchSpec, ShapeCell, register
+from .base import ArchSpec, ShapeCell, meta_spec, register
 
 SHAPES = (
     # n_r = #r-cliques, n_s = #s-cliques, C = C(s, r)
@@ -58,10 +60,18 @@ def max_rounds_bound(cfg, cell: ShapeCell) -> int:
     return d["n_r"] + 2
 
 
+def input_specs(cfg, cell: ShapeCell):
+    """The peel's inputs on ``meta``: the incidence table (n_s, C) and the
+    initial degrees (n_r,), int32."""
+    d = cell.dims
+    return {"inc_rid": meta_spec((d["n_s"], d["C"]), torch.int32),
+            "deg0": meta_spec((d["n_r"],), torch.int32)}
+
+
 SPEC = register(ArchSpec(
     arch_id="nucleus", family="core",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=SHAPES,
+    shapes=SHAPES, input_specs=input_specs,
     notes="the paper's technique itself, sharded: the peel engine "
           "(repro_torch.core.engine) over a device mesh "
           "(repro_torch.core.distributed), one (n_r,) reduction per peel "

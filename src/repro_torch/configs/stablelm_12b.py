@@ -4,7 +4,7 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from .base import ArchSpec, register, pad_vocab
-from .lm_common import lm_shapes
+from .lm_common import lm_input_specs, lm_shapes
 
 
 def make_config() -> TransformerConfig:
@@ -24,5 +24,5 @@ def make_smoke_config() -> TransformerConfig:
 SPEC = register(ArchSpec(
     arch_id="stablelm-12b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=lm_shapes(),
+    shapes=lm_shapes(), input_specs=lm_input_specs,
     notes="dense GQA decoder; head_dim=160"))

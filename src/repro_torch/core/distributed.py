@@ -97,6 +97,7 @@ def _partition(problem: NucleusProblem, mesh: Mesh) -> List[_Part]:
     for dev in mesh.distinct():
         part = _Part(dev, [i for i, d in enumerate(mesh) if d == dev])
         rows = [(bounds[i], bounds[i + 1]) for i in part.slabs]
+        # nucleuslint: disable=NL102 (host ints, additive taint)
         if len(rows) == 1 or all(a[1] == b[0] for a, b in zip(rows, rows[1:])):
             inc = problem.inc_rid[rows[0][0]:rows[-1][1]]
         else:

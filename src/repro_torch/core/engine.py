@@ -447,8 +447,10 @@ def run_peel_engine(inc_rid: torch.Tensor, deg0: torch.Tensor,
         # live degree, and PEELED exactly when every r-clique is peeled
         # (with a residual carry, the pending flag rides the same sync)
         if resid is None:
+            # nucleuslint: disable=NL101 (the round's one sync, ends the loop)
             dmin = int(key.min())
         else:
+            # nucleuslint: disable=NL101 (the same sync, with the carry)
             dmin, pending = torch.stack([key.min(), resid[1]]).tolist()
             if pending and dmin != PEELED:
                 peeled = key == PEELED

@@ -428,6 +428,7 @@ def _build_chunked_23_dense(g: Graph, dg: Digraph, orientation: str,
             eidx, w = torch.nonzero(dense[u] * dense[v], as_tuple=True)
             tri = torch.sort(torch.stack([u[eidx], v[eidx], w], dim=1),
                              dim=1).values.to(INT)
+            # nucleuslint: disable=NL102 (host ints, additive taint)
             if at + tri.shape[0] > n_s:
                 raise RuntimeError(f"the tricount count pass found {n_s} "
                                    f"triangles but the fill finds more")

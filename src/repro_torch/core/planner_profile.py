@@ -6,10 +6,11 @@ the dense engine; ``SHARD_MIN_INCIDENCE``, the shard-vs-single-device
 crossover) and the ``use_kernel=None`` default can be measured per device
 kind and written to ``planner_profile.json`` next to this file:
 
-  * the port's own file starts with no entries (``"profiles": {}``), so the
-    static constants below apply and the Plan reasons say
-    ``static defaults``; a measured ``cuda`` entry waits for a port of the
-    calibration tool (ROADMAP Queue 1.12);
+  * the port's own file holds one entry, measured on an H100 by
+    ``python -m repro_torch.tools.calibrate_planner`` and keyed by the
+    platform (``"cuda"``) and by the card's name; it has no ``cpu`` entry,
+    so on the CPU the static constants below apply and the Plan reasons
+    say ``static defaults``;
   * ``resolve_plan`` and ``engine.kernel_by_default`` read the profile
     through the loaders here, and record which entry fired (or that none
     did);

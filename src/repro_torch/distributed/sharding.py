@@ -119,6 +119,31 @@ def _parts(mesh: AbstractMesh, entry: Axis) -> int:
     return math.prod(mesh.shape[a] for a in _names(entry))
 
 
+def spec_parts(spec: "P", mesh: AbstractMesh) -> int:
+    """The number of pieces ``spec`` cuts a tensor into: the product of
+    the sizes of the axes it uses."""
+    return math.prod(_parts(mesh, e) for e in spec)
+
+
+def spec_axes(spec: "P") -> Tuple[str, ...]:
+    """The mesh axes ``spec`` uses, in order."""
+    return tuple(a for e in spec for a in _names(e))
+
+
+def first_slots(mesh: AbstractMesh) -> List[int]:
+    """The first slot of each index of the data axes, the indices in
+    ``lm_batch_spec``'s order (the first data axis major)."""
+    data = data_axes(mesh)
+    first: Dict[int, int] = {}
+    for i in range(mesh.size):
+        c = mesh.coords(i)
+        j = 0
+        for a in data:
+            j = j * mesh.shape[a] + c[a]
+        first.setdefault(j, i)
+    return [first[j] for j in range(len(first))]
+
+
 def _fits(dim: int, mesh: AbstractMesh, axis: Axis) -> bool:
     return dim % _parts(mesh, axis) == 0
 

@@ -140,14 +140,17 @@ def expand_levels_metered(dg: Digraph, seeds: torch.Tensor, ks):
         pairs = _pairs(cand, ncand)
         if pairs is None:
             for kk in ks:
+                # nucleuslint: disable=NL102 (host ints, additive taint)
                 if kk >= t:
                     out[kk] = torch.zeros((0, kk), dtype=INT, device=dev)
             return out, peak
         rep, c, total = pairs
         verts = torch.cat([verts[rep], c[:, None]], dim=1)
+        # nucleuslint: disable=NL102 (host ints, additive taint)
         if t in ks:
             out[t] = torch.sort(verts, dim=1).values
         work = 0
+        # nucleuslint: disable=NL102 (host ints, additive taint)
         if t < kmax:
             cand, ncand, work = _next_candidates(cand, rep, c, dg.adj,
                                                  dg.outdeg)

@@ -74,7 +74,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, Sq, D); k, v (B, Hkv, Sk, D), H % Hkv == 0 -> (B, H, Sq, D).
 
     Any Sq and Sk; causal masks key index > query index.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel on the current stream
+    the plain version; ``meta`` tensors get an output of q's shape and
+    nothing else (the dry run's shape function); CUDA tensors launch the
+    kernel on the current stream
     (bf16 or float32, D in ``HEAD_DIMS``) or raise.  The output has q's
     strides, so a (B, S, H, D) tensor's transposed view comes back as one.
     The kernel has no backward pass: on the card, with grad mode on and q,
@@ -86,6 +88,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = kernel_device((q, k, v), "flash_attention")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
+    if dev.type == "meta":
+        # shapes only (``launch.dryrun``): no launch, nothing counted
+        return torch.empty_like(q)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

@@ -111,6 +111,15 @@ class AbstractMesh:
     def size(self) -> int:
         return math.prod(self.axis_sizes)
 
+    def coords(self, slot: int) -> Dict[str, int]:
+        """The slot's coordinate on each axis (row-major: the last axis
+        varies fastest)."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names),
+                           reversed(self.axis_sizes)):
+            slot, out[name] = divmod(slot, n)
+        return {name: out[name] for name in self.axis_names}
+
 
 @dataclasses.dataclass(frozen=True)
 class NamedMesh(AbstractMesh):
@@ -127,15 +136,6 @@ class NamedMesh(AbstractMesh):
             raise ValueError(f"a mesh is all CPU or all CUDA devices, got "
                              f"{[str(d) for d in slots]}")
         object.__setattr__(self, "slots", slots)
-
-    def coords(self, slot: int) -> Dict[str, int]:
-        """The slot's coordinate on each axis (row-major: the last axis
-        varies fastest)."""
-        out = {}
-        for name, n in zip(reversed(self.axis_names),
-                           reversed(self.axis_sizes)):
-            slot, out[name] = divmod(slot, n)
-        return {name: out[name] for name in self.axis_names}
 
     def distinct(self) -> Tuple[torch.device, ...]:
         """The mesh's devices without repeats, in order of first use."""

@@ -139,20 +139,6 @@ def init_sharded_state(params: Any) -> adamw.AdamWState:
                             nu=SH.zeros_like(params, torch.float32))
 
 
-def _first_slots(mesh: NamedMesh) -> List[torch.device]:
-    """The device of the first slot of each index of the data axes, the
-    indices in ``lm_batch_spec``'s order (the first data axis major)."""
-    data = SH.data_axes(mesh)
-    first: Dict[int, torch.device] = {}
-    for i, dev in enumerate(mesh.slots):
-        c = mesh.coords(i)
-        j = 0
-        for a in data:
-            j = j * mesh.shape[a] + c[a]
-        first.setdefault(j, dev)
-    return [first[j] for j in range(len(first))]
-
-
 def lm_train_step_sharded(params: Any, opt_state: adamw.AdamWState,
                           batch: Dict[str, torch.Tensor],
                           cfg: T.TransformerConfig,
@@ -186,7 +172,7 @@ def lm_train_step_sharded(params: Any, opt_state: adamw.AdamWState,
             _, s, metrics = lm_train_step(p, s, batch, cfg, opt_cfg)
         return params, opt_state._replace(
             step=opt_state.step.with_shards([s.step])), metrics
-    rows_of = _first_slots(mesh)
+    rows_of = [mesh.slots[i] for i in SH.first_slots(mesh)]
     B = batch["tokens"].shape[0]
     if B % (len(rows_of) * n_micro):
         raise ValueError(f"a batch of {B} rows does not split over "

@@ -112,9 +112,11 @@ def train_lm(arch_id: str, steps: int = 200, smoke: bool = True,
                 if straggle:
                     log.event("straggler", step=straggle[0],
                               duration=straggle[1], median=straggle[2])
+            # nucleuslint: disable=NL102 (host ints, additive taint)
             if not quiet and step % log_every == 0:
                 print(f"step {step:5d}  loss {loss:.4f}  "
                       f"lr {float(metrics['lr']):.2e}", flush=True)
+            # nucleuslint: disable=NL102 (host ints, additive taint)
             if mgr and (step + 1) % ckpt_every == 0:
                 mgr.save(step + 1, (params, opt_state))
             if guard.should_stop:

@@ -12,6 +12,7 @@ the config surface and the device policy.
 """
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import pytest
@@ -76,8 +77,16 @@ REFERENCE_CASES = (
                           (3, 4, "approx"))])
 
 
-@pytest.mark.parametrize("name,r,s,method", REFERENCE_CASES)
-def test_decompose_matches_reference(name, r, s, method):
+def _config(r, s, method):
+    cfg = dict(r=r, s=s, method=method)
+    if method == "approx":
+        cfg["delta"] = 0.5
+    return cfg
+
+
+def _reference_case(name, r, s, method):
+    """The reference's side of a case: its ``decompose`` of the port's
+    incidence arrays, and its cut and nuclei at every level it peeled."""
     g = golden_suite()[name](device="cpu")
     port_problem = build_problem(g, r, s, device="cpu")
     jp = JProblem(g=JGraph(n=g.n, edges=jnp.asarray(g.edges.numpy())),
@@ -85,20 +94,42 @@ def test_decompose_matches_reference(name, r, s, method):
                   **{f: jnp.asarray(getattr(port_problem, f).numpy())
                      for f in FIELDS},
                   orientation=port_problem.orientation)
-    cfg = dict(r=r, s=s, method=method)
-    if method == "approx":
-        cfg["delta"] = 0.5
-    want = jcore.decompose(jp, jcore.NucleusConfig(**cfg))
-    got = decompose(g, NucleusConfig(**cfg), device="cpu")
+    want = jcore.decompose(jp, jcore.NucleusConfig(**_config(r, s, method)))
+    levels = sorted(set(int(x) for x in want.peel_value if x > 0))
+    return want, {c: (want.cut(c), want.nuclei(c)) for c in levels}
+
+
+@pytest.fixture(scope="module")
+def reference_cases():
+    """Every case's reference side, submitted together to a few threads
+    when the first case runs (its cost is XLA compiles of the reference's
+    programs, which release the interpreter lock) while the main thread
+    checks the port; pending work is dropped at the end."""
+    with ThreadPoolExecutor(max_workers=4,
+                            thread_name_prefix="reference") as pool:
+        futures = {tuple(case.values): pool.submit(_reference_case,
+                                                   *case.values)
+                   for case in REFERENCE_CASES}
+        yield futures
+        for f in futures.values():
+            f.cancel()
+        wait(futures.values())
+
+
+@pytest.mark.parametrize("name,r,s,method", REFERENCE_CASES)
+def test_decompose_matches_reference(reference_cases, name, r, s, method):
+    want, queries = reference_cases[(name, r, s, method)].result()
+    g = golden_suite()[name](device="cpu")
+    got = decompose(g, NucleusConfig(**_config(r, s, method)), device="cpu")
     assert got.rounds == want.rounds
     for field in ("core", "order_round", "peel_value", "uf_parent", "uf_L"):
         np.testing.assert_array_equal(getattr(got, field),
                                       np.asarray(getattr(want, field)),
                                       err_msg=field)
-    for c in sorted(set(int(x) for x in want.peel_value if x > 0)):
-        np.testing.assert_array_equal(got.cut(c), want.cut(c),
+    for c, (want_cut, wn) in queries.items():
+        np.testing.assert_array_equal(got.cut(c), want_cut,
                                       err_msg=f"cut({c})")
-        gn, wn = got.nuclei(c), want.nuclei(c)
+        gn = got.nuclei(c)
         assert sorted(gn) == sorted(wn)
         for lab in gn:
             np.testing.assert_array_equal(gn[lab].vertices,

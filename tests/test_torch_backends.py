@@ -299,16 +299,34 @@ def test_planner_rules_fire_with_their_reasons():
 # ---------------------------------------------------------------------------
 
 def test_port_profile_is_its_own_and_empty():
+    """The committed profile is the port's own: one measured ``cuda``
+    entry (keyed by the platform and by the card's name) and no ``cpu``
+    entry, so the CPU keeps the static rule the parity tests pin."""
     assert os.path.dirname(PP.PROFILE_PATH) == os.path.join(
         ROOT, "src", "repro_torch", "core")
     blob = PP.load_profile()
-    assert blob is not None and blob["profiles"] == {}
+    assert blob is not None and blob["format"] == PP.FORMAT
+    assert blob["version"] == PP.VERSION
+    profiles = blob["profiles"]
+    assert "cpu" not in profiles
+    entry = profiles["cuda"]
+    assert isinstance(entry["tiny_nr"], int) and entry["tiny_nr"] > 0
+    assert isinstance(entry["kernel_default"], bool)
+    assert "shard_min_incidence" not in entry
+    m = entry["measured"]
+    assert m["platform"] == "cuda" and m["quick"] is False
+    assert m["n_devices"] >= 1 and m["device_name"] in profiles
+    assert profiles[m["device_name"]] == entry
+    assert m["power_limit"].startswith(m["device_name"] + ", ")
     th = PP.thresholds(device_kind="cuda", platform="cuda")
-    assert th == {"tiny_nr": PP.STATIC_TINY_NR,
+    assert th == {"tiny_nr": entry["tiny_nr"],
                   "shard_min_incidence": PP.STATIC_SHARD_MIN_INCIDENCE,
-                  "source": "static defaults"}
+                  "source": "planner_profile['cuda']"}
+    assert PP.kernel_default("cuda") is entry["kernel_default"]
+    assert PP.thresholds(device_kind="cpu", platform="cpu")["source"] == \
+        "static defaults"
     with pytest.warns(UserWarning, match="falls back to the static"):
-        assert PP.kernel_default("cuda") is None
+        assert PP.kernel_default("cpu") is None
 
 
 def test_profile_entries_drive_thresholds_and_kernel_default(tmp_path):

@@ -801,3 +801,39 @@ def test_gnn_loss_on_card(cuda_device, arch):
     assert _rel_norm(gl, cl) <= 1e-3
     for a, w in zip(gg, cg):
         assert _rel_norm(a, w) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_calibration_on_card(cuda_device, tmp_path):
+    """``calibrate_planner`` on the card, a one-rung ladder: a ``cuda``
+    entry keyed also by the card's name, the megakernel launched exactly
+    on the rounds the race ran, and ``resolve_plan`` reading it."""
+    from repro_torch.core import backends as B
+    from repro_torch.core import planner_profile as PP
+    from repro_torch.core.api import NucleusConfig
+    from repro_torch.tools import calibrate_planner as CP
+    out = str(tmp_path / "profile.json")
+    before = launch_counts["peel_round"]
+    res = CP.calibrate("cuda", quick=True, out=out, ladder=(16,), repeats=1,
+                       log=lambda m: None)
+    assert launch_counts["peel_round"] - before == res["kernel_rounds"] > 0
+    name = torch.cuda.get_device_name(0)
+    assert res["keys"] == ["cuda", name]
+    entry = res["entry"]
+    assert isinstance(entry["tiny_nr"], int)
+    assert isinstance(entry["kernel_default"], bool)
+    assert entry["measured"]["device_name"] == name
+    PP.reset_cache()
+    plan = B.resolve_plan(NucleusConfig(backend="auto"), n_r=100, n_s=100,
+                          n_sub=3, device_kind="cuda", profile_path=out)
+    assert any("planner_profile['cuda']" in r for r in plan.reasons)
+    PP.reset_cache()
+
+
+@pytest.mark.cuda
+def test_build_gate_on_card(cuda_device):
+    from repro_torch.tools import check_build_budget as CB
+    res = CB.gate("cuda", log=lambda m: None)
+    assert res["failures"] == []
+    assert res["chunked"]["device"].startswith("cuda")
+    assert 0 < res["chunked"]["peak_bytes"] < res["eager"]["peak_bytes"]

@@ -11,6 +11,7 @@ arrays: one numpy dict, fed to ``problem_from_reference`` for the port and
 to the reference's ``NucleusProblem``.
 """
 import functools
+from concurrent.futures import ThreadPoolExecutor, wait
 from math import comb
 
 import numpy as np
@@ -78,14 +79,40 @@ CASES = [(name, 2, 3) for name in sorted(golden_suite())] + \
     [("seed500", 1, 2), ("seed500", 2, 3), ("seed500", 3, 4)]
 
 
+def reference_peel(name, r, s, kind):
+    """The reference's ``dense_coreness`` arrays of a case (None without
+    r-cliques)."""
+    _, j = both_problems(name, r, s)
+    if j.n_r == 0:
+        return None
+    return [np.asarray(x) for x in j_dense_coreness(
+        j, j_make_schedule(j, kind, 0.1), use_pallas=False, hierarchy=True)]
+
+
+@pytest.fixture(scope="module")
+def reference_peels():
+    """Every case's reference peel, submitted together to a few threads
+    when the first case runs (its cost is XLA compiles, which release the
+    interpreter lock) while the main thread checks the port's bodies;
+    pending work dropped at the end."""
+    with ThreadPoolExecutor(max_workers=4,
+                            thread_name_prefix="reference") as pool:
+        futures = {(c, kind): pool.submit(reference_peel, *c, kind)
+                   for c in CASES for kind in ("exact", "approx")}
+        yield futures
+        for f in futures.values():
+            f.cancel()
+        wait(futures.values())
+
+
 @pytest.mark.parametrize("kind", ["exact", "approx"])
 @pytest.mark.parametrize("name,r,s", CASES)
-def test_dense_coreness_matches_reference(name, r, s, kind):
-    port, j = both_problems(name, r, s)
+def test_dense_coreness_matches_reference(reference_peels, name, r, s,
+                                          kind):
+    port, _ = both_problems(name, r, s)
     if port.n_r == 0:
         pytest.skip("no r-cliques")
-    want = [np.asarray(x) for x in j_dense_coreness(
-        j, j_make_schedule(j, kind, 0.1), use_pallas=False, hierarchy=True)]
+    want = reference_peels[((name, r, s), kind)].result()
     bodies = BODIES if name == "seed500" else KERNEL_BODIES
     for use_kernel, fused in bodies:
         got = dense_coreness(port, make_schedule(port, kind, 0.1),

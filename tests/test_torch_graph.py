@@ -12,6 +12,8 @@ tests/test_torch_incidence.py, which compiles the same reference programs
 for ``pick_rank`` anyway; the expansion and the CSR here take the port's
 DAG as the input both packages get.
 """
+from concurrent.futures import ThreadPoolExecutor, wait
+
 import numpy as np
 import pytest
 import torch
@@ -67,30 +69,68 @@ def t(x):
     return torch.tensor(np.array(x))
 
 
-@pytest.mark.parametrize("name", GRAPHS)
-def test_container_and_orientation(name):
+ORIENT_FIELDS = ("offsets", "neighbors", "adj", "outdeg")
+
+
+def reference_container(name):
+    """The reference's side of ``test_container_and_orientation``, as
+    numpy: the graph, on seed500 both ranks and the degree-rank DAG, and
+    ``csr_from_pairs`` over the port's DAG arcs (the keys are the port's
+    arrays, the same input both packages get)."""
     jg, tg = graph_pair(name)
-    assert tg.n == jg.n
-    eq(jg.edges, tg.edges, "make_graph edges")
+    out = {"n": jg.n, "edges": np.asarray(jg.edges)}
+    if name == "seed500":
+        for kind in ("degree_rank", "approx_degeneracy_rank"):
+            out[kind] = np.asarray(getattr(jorient, kind)(jg))
+        dg = jcontainer.orient(jg, jorient.degree_rank(jg))
+        out["orient"] = {f: np.asarray(getattr(dg, f)) for f in ORIENT_FIELDS}
+    keys = orient(tg, torient.degree_rank(tg)).neighbors.numpy()
+    vals = np.arange(keys.shape[0], dtype=np.int32)
+    out["csr"] = [np.asarray(x) for x in
+                  jcontainer.csr_from_pairs(keys, vals, jg.n)]
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_containers():
+    """Every graph's reference side, submitted together to a few threads
+    when the first graph's test runs (XLA compiles, which release the
+    interpreter lock); pending work dropped at the end."""
+    with ThreadPoolExecutor(max_workers=4,
+                            thread_name_prefix="reference") as pool:
+        futures = {name: pool.submit(reference_container, name)
+                   for name in GRAPHS}
+        yield futures
+        for f in futures.values():
+            f.cancel()
+        wait(futures.values())
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_container_and_orientation(reference_containers, name):
+    ref = reference_containers[name].result()
+    tg = golden_suite()[name](device="cpu") if name != "seed500" else \
+        make_graph(*seeded_edges(), device="cpu")
+    assert tg.n == ref["n"]
+    eq(ref["edges"], tg.edges, "make_graph edges")
     tr = torient.degree_rank(tg)
     tdg = orient(tg, tr)
     if name == "seed500":
         for kind in ("degree_rank", "approx_degeneracy_rank"):
-            jr = getattr(jorient, kind)(jg)
-            eq(jr, getattr(torient, kind)(tg), kind)
-        dg = jcontainer.orient(jg, jorient.degree_rank(jg))
-        for field in ("offsets", "neighbors", "adj", "outdeg"):
-            eq(getattr(dg, field), getattr(tdg, field), f"orient {field}")
+            eq(ref[kind], getattr(torient, kind)(tg), kind)
+        for field in ORIENT_FIELDS:
+            eq(ref["orient"][field], getattr(tdg, field),
+               f"orient {field}")
     # csr_from_pairs over the DAG arcs, keyed by head (many equal keys)
     keys = tdg.neighbors.numpy()
     vals = np.arange(keys.shape[0], dtype=np.int32)
-    jo, jv = jcontainer.csr_from_pairs(keys, vals, jg.n)
+    jo, jv = ref["csr"]
     to, tv = csr_from_pairs(t(keys), t(vals), tg.n)
     eq(jo, to, "csr offsets")
     eq(jv, tv, "csr vals")
     # expansion over the same DAG, held to the reference's numpy twin
     ks = [1, 2, 3, 4]
-    seeds = np.arange(jg.n, dtype=np.int32)
+    seeds = np.arange(tg.n, dtype=np.int32)
     want = _expand_levels_np(tdg.adj.numpy(), tdg.outdeg.numpy(), seeds,
                              ks)[0]
     got = expand_levels(tdg, t(seeds), ks)

@@ -2,7 +2,8 @@
 chip_smoke.py imports jax or the JAX package ``repro``, importing
 ``repro_torch`` leaves jax out of ``sys.modules``, and no module of
 src/repro_torch/ names a path under src/repro/ in its code (a data file of
-the reference, such as its planner profile, read through a path)."""
+the reference, such as its planner profile, read through a path).  The
+lint's modules that need only the standard library import nothing else."""
 import ast
 import os
 import re
@@ -64,7 +65,15 @@ def test_port_sources_found():
                 "configs/din.py", "configs/gnn_shapes.py",
                 "configs/gin_tu.py", "configs/egnn.py", "configs/dimenet.py",
                 "configs/mace.py", "graph/sampler.py", "graph/unionfind.py",
-                "distributed/sharding.py", "launch/platform.py"):
+                "distributed/sharding.py", "launch/platform.py",
+                "launch/dryrun.py", "tools/calibrate_planner.py",
+                "tools/check_build_budget.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/findings.py",
+                "analysis/driver.py", "analysis/baseline.py",
+                "analysis/deadmod.py", "analysis/torchast.py",
+                "analysis/rules_trace.py", "analysis/rules_recompile.py",
+                "analysis/rules_concurrency.py",
+                "analysis/rules_registry.py"):
         assert mod in rel, mod
 
 
@@ -135,7 +144,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.egnn, repro_torch.models.dimenet, "
             "repro_torch.models.mace, repro_torch.configs.gnn_shapes, "
             "repro_torch.graph.sampler, repro_torch.launch.steps, "
-            "repro_torch.distributed.sharding, repro_torch.launch.platform; "
+            "repro_torch.distributed.sharding, repro_torch.launch.platform, "
+            "repro_torch.launch.dryrun, repro_torch.tools.calibrate_planner, "
+            "repro_torch.tools.check_build_budget, repro_torch.analysis, "
+            "repro_torch.analysis.__main__; "
             "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")
@@ -143,3 +155,16 @@ def test_import_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+STDLIB_ONLY = ("findings.py", "driver.py", "baseline.py", "deadmod.py",
+               "torchast.py", "rules_trace.py", "rules_recompile.py",
+               "rules_concurrency.py", "rules_registry.py", "__init__.py",
+               "__main__.py")
+
+
+@pytest.mark.parametrize("name", STDLIB_ONLY)
+def test_lint_imports_only_the_standard_library(name):
+    path = os.path.join(ROOT, "src", "repro_torch", "analysis", name)
+    roots = set(imported_roots(path))
+    assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots

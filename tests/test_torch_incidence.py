@@ -12,6 +12,7 @@ per op and shape, several seconds per graph, where this one costs one
 ``pick_rank`` per graph.
 """
 import functools
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import pytest
@@ -42,18 +43,50 @@ def reference_dag(name):
     return g, dg, orientation
 
 
-@pytest.mark.parametrize("name", sorted(golden_suite()))
-def test_orientations_match_reference(name):
+ORIENT_FIELDS = ("offsets", "neighbors", "adj", "outdeg")
+
+
+def reference_orientations(name):
+    """{kind: (rank, {field: oriented array})} of the reference, for both
+    candidate orientations of a golden graph."""
     g, _, _ = reference_dag(name)  # same programs pick_rank compiled
+    out = {}
+    for kind in ("degree_rank", "approx_degeneracy_rank"):
+        jr = getattr(jorient, kind)(g)
+        jd = jcontainer.orient(g, jr)
+        out[kind] = (np.asarray(jr), {f: np.asarray(getattr(jd, f))
+                                      for f in ORIENT_FIELDS})
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_orients():
+    """Every graph's reference orientations, submitted together to a few
+    threads when the first graph's test runs (their cost is XLA compiles,
+    which release the interpreter lock); pending work dropped at the
+    end."""
+    with ThreadPoolExecutor(max_workers=4,
+                            thread_name_prefix="reference") as pool:
+        futures = {name: pool.submit(reference_orientations, name)
+                   for name in sorted(golden_suite())}
+        yield futures
+        for f in futures.values():
+            f.cancel()
+        wait(futures.values())
+
+
+@pytest.mark.parametrize("name", sorted(golden_suite()))
+def test_orientations_match_reference(reference_orients, name):
+    want = reference_orients[name].result()
     tg = golden_suite()[name](device="cpu")
     for kind in ("degree_rank", "approx_degeneracy_rank"):
-        jr, tr = getattr(jorient, kind)(g), getattr(torient, kind)(tg)
-        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr),
-                                      err_msg=kind)
-        jd, td = jcontainer.orient(g, jr), orient(tg, tr)
-        for field in ("offsets", "neighbors", "adj", "outdeg"):
+        jr, jd = want[kind]
+        tr = getattr(torient, kind)(tg)
+        np.testing.assert_array_equal(tr.numpy(), jr, err_msg=kind)
+        td = orient(tg, tr)
+        for field in ORIENT_FIELDS:
             np.testing.assert_array_equal(
-                getattr(td, field).numpy(), np.asarray(getattr(jd, field)),
+                getattr(td, field).numpy(), jd[field],
                 err_msg=f"{kind} {field}")
 
 
