@@ -7,8 +7,9 @@ triangles, then the memory-bounded chunked build on the card: its dense
 (2,3) fast path on a 32,768-vertex graph and its sparse seed-chunked path on
 the million-vertex graph, then LM inference of minicpm-2b at full width
 (random seeded weights): a 32,768-token prefill through the flash-attention
-kernel and a decode server, then the nucleus server (a warm Session,
-exact updates, a multi-tenant router and its HTTP surface), the
+kernel and a decode server, and stablelm-12b's 32,768-token prefill at
+full width (the kernel's head dim 160), then the nucleus server (a warm
+Session, exact updates, a multi-tenant router and its HTTP surface), the
 sharded lane (the sharded build, the peel over a mesh of slabs, its exact
 compressed reduction and a sharded pool), MoE and MLA inference of
 moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, LM training
@@ -60,16 +61,21 @@ Phases (any failure ends the run with a non-zero exit):
   8. LM inference: flash attention vs its plain twin at the model's head
      shapes (minicpm-2b, minitron-4b's GQA, stablelm-12b's head dim 160,
      ragged, f32, non-causal, Sq < Sk, the wgmma kernel's block and tile
-     edges, B > 1) and at the prefill shape (the twin in query-row
-     slices), each beside a control with the scale 3% off that the bar
-     must reject, with its times at the prefill shape and at minitron-4b's
-     (1, 24, 8, 4096, 128);
+     edges at D = 64, 128 and 160, B > 1) and at the prefill shape (the
+     twin in query-row slices), each beside a control with the scale 3%
+     off that the bar must reject, with its times at the prefill shape and
+     at minitron-4b's (1, 24, 8, 4096, 128);
      ``lm_prefill_step`` of minicpm-2b at full width, B = 1, S = 32,768
      (one flash launch per layer); the card's ``forward`` vs the CPU's at
      full width with 2 layers in f32; ``serve_lm`` of the minicpm-2b and
      minitron-4b smoke configs on the card and the CPU (equal greedy
      tokens); ``serve_lm`` of minicpm-2b at full width on the card (decode
-     runs the online scan: no flash launch);
+     runs the online scan: no flash launch); ``lm_prefill_step`` of
+     stablelm-12b at full width, B = 1, S = 32,768 (the D = 160 route:
+     flash launches = layers and the next token equal in two runs, layer
+     0's attention held to the twin in a third, one run traced), then the
+     kernel's, the twin's, SDPA's and the bound's times at
+     (1, 32, 8, 4096, 160) and (1, 32, 8, 32768, 160);
   9. the nucleus server: ``Session().decompose`` of the smoke problem
      (counted in its pow2 shape bucket, run by ``decompose``'s engine),
      bit-identical to phase 3 with megakernel launches == rounds, and a
@@ -107,7 +113,7 @@ Phases (any failure ends the run with a non-zero exit):
      with equal top-k expert choices at every token and layer, and the
      smoke configs' ``serve_lm`` on card and CPU (equal greedy tokens);
      flash attention's, SDPA's and the bound's times at their prefill
-     shape (1, 16, 32768, 128) and at stablelm-12b's (1, 32, 8, 4096, 160);
+     shape (1, 16, 32768, 128);
  12. LM training of minicpm-2b (``phase_train``): at full width in bf16
      with remat, B = 1 and train_4k's S = 4,096, four ``lm_train_step``s
      and two ``lm_train_step_microbatched`` of 2 x 1 timed (finite losses,
@@ -213,8 +219,8 @@ FLASH_CASES = (
     (1, 36, 36, 1000, 1000, 64, True, torch.float32),     # f32
     (1, 8, 8, 1000, 1000, 128, False, torch.bfloat16),    # non-causal
     (1, 24, 8, 700, 2000, 128, True, torch.bfloat16),     # Sq < Sk
-    # the wgmma kernel's edges: blocks of 192 (D = 64) or 128 (D = 128)
-    # query rows, tiles of 128 keys, B > 1 with GQA
+    # the wgmma kernel's edges: blocks of 192 (D = 64) or 128 (D = 128,
+    # 160) query rows, tiles of 128 keys, B > 1 with GQA
     (1, 4, 4, 127, 127, 64, True, torch.bfloat16),
     (1, 4, 4, 129, 129, 64, True, torch.bfloat16),
     (1, 4, 2, 255, 255, 128, True, torch.bfloat16),
@@ -222,14 +228,23 @@ FLASH_CASES = (
     (3, 8, 2, 257, 257, 64, True, torch.bfloat16),
     (2, 6, 3, 255, 255, 128, False, torch.bfloat16),
     (1, 24, 8, 2048, 2048, 128, True, torch.bfloat16),
+    (1, 4, 4, 127, 127, 160, True, torch.bfloat16),
+    (1, 4, 2, 129, 129, 160, True, torch.bfloat16),
+    (1, 2, 2, 129, 257, 160, True, torch.bfloat16),
+    (1, 4, 4, 257, 255, 160, False, torch.bfloat16),
+    (3, 8, 2, 257, 257, 160, True, torch.bfloat16),
+    (2, 6, 3, 255, 255, 160, False, torch.bfloat16),
 )
 # minitron-4b's attention (GQA, D = 128), timed beside the prefill shape
 FLASH_D128 = (1, 24, 8, 4096, 128)
+# phase 8's second model: stablelm-12b (GQA, D = 160) prefilled at full
+# width, its attention timed at S = 4,096 and at the prefill's S
+D160_ARCH = "stablelm-12b"
+FLASH_D160 = ((1, 32, 8, 4096, 160), (1, 32, 8, PREFILL_S, 160))
 # phase 11: the MoE/MLA archs, one on the card at a time, and the flash
-# kernel at their prefill shape and at stablelm-12b's head dim 160
+# kernel at their prefill shape
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-lite-16b")
 FLASH_MOE = (1, 16, 16, PREFILL_S, 128)
-FLASH_D160 = (1, 32, 8, 4096, 160)
 # flash attention's bar: the largest ||got - want|| / ||want|| over output
 # rows (a row is one query's D values).  bf16: the output's rounding is
 # relative (half an ulp, 2^-9), so a bar relative to each row holds at every
@@ -1140,9 +1155,74 @@ def profile_prefill(params, cfg, toks, tag: str):
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "flash_ms": flash_ms}
 
 
+def two_prefills(params, cfg, toks, arch: str):
+    """Two ``lm_prefill_step`` runs of one model, each synced and timed with
+    its flash launches counted (= layers), the next token equal in both;
+    returns (seconds of each run, next token, launches, peak GB)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import lm_prefill_step
+    torch.cuda.reset_peak_memory_stats()
+    runs, nxts, launches = [], [], []
+    for _ in range(2):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxts.append(lm_prefill_step(params, {"tokens": toks}, cfg))
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+        launches.append(launch_counts["flash_attention"])
+        require(launches[-1] == cfg.n_layers,
+                f"{arch} prefill launched flash attention "
+                f"{launches[-1]} times, not n_layers={cfg.n_layers}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(torch.equal(nxts[0], nxts[1]),
+            f"{arch}: the prefill's next token differs between two runs")
+    return runs, nxts[0], launches, peak_gb
+
+
+def prefill_d160(seed: int, gen):
+    """stablelm-12b's ``lm_prefill_step`` at full width, bf16, B = 1,
+    S = 32,768 (the D = 160 route of the flash kernel): two timed runs
+    (flash launches = layers, the next token equal), a third whose layer 0
+    attention is held to the twin on the path's own q, k, v, one traced;
+    the model is freed before returning."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import lm_prefill_step
+    from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
+    cfg = get_arch(D160_ARCH).make_config()
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    toks = torch.randint(0, cfg.vocab, (1, PREFILL_S), generator=gen,
+                         device="cuda")
+    runs, nxt, launches, peak_gb = two_prefills(params, cfg, toks, D160_ARCH)
+    with FirstAttentionCheck(T.ops, "lm") as fa:
+        chk = lm_prefill_step(params, {"tokens": toks}, cfg)
+    require(torch.equal(chk, nxt), f"{D160_ARCH}: the checked prefill's "
+            f"next token differs")
+    row = {"params": cfg.param_count(), "init_s": init_s, "prefill_s": runs,
+           "peak_gb": peak_gb, "next_token": int(nxt),
+           "flash_launches": launches, "layer0_max_abs_err": fa.err[0],
+           "layer0_max_row_rel_err": fa.err[1]}
+    log(f"[lm] {D160_ARCH} prefill B=1 S={PREFILL_S}: {row['params']} "
+        f"params (bf16, init {init_s:.2f} s), prefill {runs[0]:.3f} s "
+        f"(again {runs[1]:.3f} s), peak {peak_gb:.2f} GB, next token "
+        f"{row['next_token']} in both runs, flash launches {launches} "
+        f"(layers {cfg.n_layers})")
+    row["prefill_profile"] = profile_prefill(params, cfg, toks, "lm")
+    del params, toks, chk
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_lm(seed: int):
-    """Phase 7: flash attention vs its plain twin and its times, then the
-    LM path of minicpm-2b: full-width prefill, card vs CPU, serving."""
+    """Phase 8: flash attention vs its plain twin and its times, then the
+    LM path of minicpm-2b: full-width prefill, card vs CPU, serving; then
+    stablelm-12b's full-width prefill (D = 160) and the kernel's times at
+    its head shape."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1270,6 +1350,16 @@ def phase_lm(seed: int):
             f"serve_lm({arch!r}) smoke: card tokens differ from the CPU's")
         log(f"[lm] serve_lm({arch!r}) smoke: {len(on_cpu)} requests, equal "
             f"greedy tokens on card and CPU")
+
+    # stablelm-12b: the D = 160 route on a full-width prefill, then the
+    # kernel at its head shape at S = 4,096 and at the prefill's S
+    d160_path = prefill_d160(seed, gen)
+    d160 = [flash_row(gen, *shape, iters=20 if shape[3] < PREFILL_S else 5,
+                      tag="lm") for shape in FLASH_D160]
+    err = max([err, d160_path["layer0_max_abs_err"]] +
+              [x["max_abs_err"] for x in d160])
+    row_err = max([row_err, d160_path["layer0_max_row_rel_err"]] +
+                  [x["max_row_rel_err"] for x in d160])
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
@@ -1283,9 +1373,16 @@ def phase_lm(seed: int):
             "library_call": "scaled_dot_product_attention(is_causal=True)",
             "shape": pre["shape"],
             "routes": "bf16 D=64: wgmma/TMA, 3 consumer warpgroups; bf16 "
-                      "D=128: wgmma/TMA, 2; bf16 D=160 and f32: the first "
-                      "design (mma.sync m16n8k16 / FMA)",
-            "d128": d128,
+                      "D=128: wgmma/TMA, 2; bf16 D=160: wgmma/TMA, 2, "
+                      "32-dim boxes under the 64-byte swizzle; f32: the "
+                      "first design (FMA)",
+            "d128": d128, "d160": d160[0], "d160_long": d160[1],
+            "d160_path": {k: d160_path[k] for k in (
+                "prefill_s", "peak_gb", "flash_launches")} | {
+                "flash_ms": d160_path["prefill_profile"]["flash_ms"],
+                "device_ms": d160_path["prefill_profile"]["device_ms"],
+                "path": f"lm_prefill_step({D160_ARCH}, B=1, "
+                        f"S={PREFILL_S})"},
             "path": f"lm_prefill_step({LM_ARCH}, B=1, S={PREFILL_S})"}
 
 
@@ -1359,8 +1456,8 @@ def phase_moe(seed: int):
     a third, recorded run); (b) ``serve_lm`` at full width (no flash
     launch); (c) ``forward`` card == CPU at full width with 2 layers in
     f32 with equal expert choices; (d) the smoke configs' ``serve_lm`` on
-    card and CPU.  Then flash attention at these archs' prefill shape and
-    at stablelm-12b's D = 160, beside SDPA and the bound."""
+    card and CPU.  Then flash attention at these archs' prefill shape,
+    beside SDPA and the bound."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve_lm
@@ -1379,32 +1476,17 @@ def phase_moe(seed: int):
         init_s = time.perf_counter() - t
         toks = torch.randint(0, cfg.vocab, (1, PREFILL_S), generator=gen,
                              device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        runs, nxts, launches = [], [], []
-        for _ in range(2):
-            reset_launch_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            nxts.append(lm_prefill_step(params, {"tokens": toks}, cfg))
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t)
-            launches.append(launch_counts["flash_attention"])
-            require(launches[-1] == cfg.n_layers,
-                    f"{arch} prefill launched flash attention "
-                    f"{launches[-1]} times, not n_layers={cfg.n_layers}")
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        require(torch.equal(nxts[0], nxts[1]),
-                f"{arch}: the prefill's next token differs between two runs")
+        runs, nxt, launches, peak_gb = two_prefills(params, cfg, toks, arch)
         # a third, uncounted run: the capacity drops, and the first layer's
         # attention held to the twin on the path's own q, k, v
         with MoERecorder(T) as rec, FirstAttentionCheck(T.ops, "moe") as fa:
             rec_nxt = lm_prefill_step(params, {"tokens": toks}, cfg)
-        require(torch.equal(rec_nxt, nxts[0]) and len(rec.dropped) ==
+        require(torch.equal(rec_nxt, nxt) and len(rec.dropped) ==
                 cfg.n_layers, f"{arch}: the recorded prefill differs")
         cap = T.moe_capacity(PREFILL_S, cfg.moe)
         row = {"params": cfg.param_count(), "init_s": init_s,
                "prefill_s": runs, "peak_gb": peak_gb,
-               "next_token": int(nxts[0]),
+               "next_token": int(nxt),
                "flash_launches": launches, "cap": cap,
                "layer0_max_abs_err": fa.err[0],
                "layer0_max_row_rel_err": fa.err[1],
@@ -1502,10 +1584,9 @@ def phase_moe(seed: int):
         torch.cuda.empty_cache()
 
     # the flash kernel at these archs' prefill shape (head_dim 2048/16 =
-    # 128, Hkv = H = 16) and at stablelm-12b's D = 160 (mma.sync route)
+    # 128, Hkv = H = 16)
     timing = {"moe_mla_prefill": flash_row(gen, *FLASH_MOE, iters=10,
-                                           tag="moe", hold_sdpa=True),
-              "d160": flash_row(gen, *FLASH_D160, iters=20, tag="moe")}
+                                           tag="moe", hold_sdpa=True)}
     return out, timing
 
 

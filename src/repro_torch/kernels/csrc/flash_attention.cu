@@ -26,25 +26,44 @@
 // KV tiles takes the place of the TPU's sequential kv grid axis, with the
 // running max m, sum l and f32 output accumulator in registers.
 //
-// bf16 at D = 64 and 128 (minicpm-2b, minitron-4b), the Hopper design:
+// bf16 at D = 64, 128 and 160 (minicpm-2b, minitron-4b, stablelm-12b), one
+// Hopper kernel templated on D and the number W of consumer warpgroups:
 //   * a block owns 64 * W query rows of one (b, h): W consumer warpgroups
-//     (W = 3 at D = 64, 2 at D = 128) and one producer warpgroup, which
-//     gives its registers to the consumers (setmaxnreg) while one of its
-//     threads loads Q once and streams the K and V tiles of 128 keys
-//     through a ring of shared-memory stages (4 at D = 64, 3 at D = 128)
-//     with TMA, each stage guarded by a full and an empty mbarrier.  Rows
-//     and keys past the end read as zeros (TMA's bounds), so no padded copy
-//     is made; the output stores are masked.
+//     (W = 3 at D = 64, 2 at D = 128 and 160) and one producer warpgroup,
+//     which gives its registers to the consumers (setmaxnreg) while one of
+//     its threads loads Q once and streams the K and V tiles of 128 keys
+//     through a ring of shared-memory stages (4 at D = 64, 3 at D = 128, 2
+//     at D = 160) with TMA, each stage guarded by a full and an empty
+//     mbarrier.  Stage t holds K of tile t and V of tile t - 1, the two
+//     tiles a consumer reads in step t, so a stage is refilled a whole step
+//     before it is read even with two stages (holding K and V of one tile,
+//     it was freed only by tile j's P V in step j + 1, half a step before
+//     tile j + 2 needed it).  Rows and keys past the end read as zeros
+//     (TMA's bounds), so no padded copy is made; the output stores are
+//     masked.
+//   * the head dim is read in TMA boxes whose rows are one swizzle row each:
+//     64 dims (128 bytes, 128-byte swizzle) where 64 divides D, else 32 dims
+//     (64 bytes, 64-byte swizzle), so D = 160 is five 32-wide boxes and no
+//     column is padded: every operand is whole swizzle atoms, and the wgmma
+//     descriptors name the same swizzle (layout 1 or 2) as the boxes.  (Three
+//     128-byte boxes over D padded to 192 by TMA's zero fill would spend 20 %
+//     more Q K^T products, and 48 KB a tile would leave room for one stage.)
 //   * each consumer warpgroup owns 64 rows (the M of wgmma).  S = Q K^T is
-//     one SS wgmma chain (m64n128k16, Q and K K-major in shared memory
-//     under the 128-byte swizzle the TMA boxes were written with; a
-//     128-wide head is two 64-wide boxes).  The softmax runs on the f32
+//     one SS wgmma chain (m64n128k16, Q and K K-major, 16 head dims a step:
+//     D / 16 steps, two or four to a box).  The softmax runs on the f32
 //     accumulator in registers, where a thread holds rows lane/4 and
 //     lane/4 + 8 of its warp's 16: exp2 with scale*log2(e) folded into one
 //     FMA per score, each thread's share of the row sum reduced across its
-//     quad once at the end.  O += P V is an RS wgmma chain: P converted to
-//     bf16 A fragments in registers, V read N-major through the
-//     descriptor's transpose.
+//     quad once at the end.  O += P V is an RS wgmma chain of m64nDk16 (N =
+//     64, 128 or 160): P converted to bf16 A fragments in registers, V read
+//     N-major through the descriptor's transpose, the boxes one leading
+//     offset apart.  A consumer thread holds O (D / 2 f32), S (64 f32) and
+//     P (32 bf16 pairs): 176 registers at D = 160 under setmaxnreg's 240.
+//   * shared memory (Cfg): Q (64 * W * D * 2 bytes) + 2 * stages K/V tiles
+//     (128 * D * 2 bytes each) + 1 KB of alignment: 156,672 bytes at D = 64,
+//     230,400 at D = 128, and at D = 160 (W = 2, 2 stages) 40,960 + 4 *
+//     40,960 + 1,024 = 205,824 of the 232,448 a block may use (a third
+//     stage would need 287,744).
 //   * overlap: a warpgroup issues tile j's Q K^T and tile j-1's P V back to
 //     back and runs tile j's softmax while P V is still on the tensor
 //     cores; the warpgroups issue their products in turns (named barriers,
@@ -54,10 +73,6 @@
 //   * causal: the key loop stops at the tile of the block's last row, only
 //     the diagonal tiles and the ragged end evaluate the mask, and the grid
 //     issues every head's heaviest query blocks (the last ones) first.
-// bf16 at D = 160 (stablelm-12b) keeps the first design, chosen by shape in
-//   the C entry: 4 warps own 64 rows on mma.sync m16n8k16, K/V fragments
-//   through ldmatrix from cp.async double buffers (a 160-wide head is three
-//   TMA boxes, 64 + 64 + 32, a later step).
 // f32 (the smoke configs and the card-vs-CPU checks): plain f32 FMAs, four
 //   threads per query row, probabilities staged in shared memory.
 //
@@ -125,32 +140,6 @@ __device__ __forceinline__ void load_tile(T* sm, const T* g, long long stride,
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -171,175 +160,6 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
   int n = (p.Sk + kBN - 1) / kBN;
   if (p.causal) n = min(n, (q0 + kBM - 1) / kBN + 1);
   return n;
-}
-
-// ---------------------------------------------------------------------------
-// bf16 at D = 160: 4 warps, 16 query rows each, mma.sync m16n8k16
-// ---------------------------------------------------------------------------
-
-template <int kD>
-__global__ void __launch_bounds__(128)
-    flash_bf16_mma_kernel(const Params p) {
-  constexpr int kLd = kD + 8;  // padded row: 16 bytes over kD
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBM][kLd]
-  bf16* Ks = Qs + kBM * kLd;                     // [2][kBN][kLd]
-  bf16* Vs = Ks + 2 * kBN * kLd;                 // [2][kBN][kLd]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal blocks first
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int q0 = qb * kBM;
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + hk * p.ksh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + hk * p.vsh;
-  bf16* og = static_cast<bf16*>(p.o) + b * p.osb + h * p.osh;
-  const int n_kv = kv_tiles(p, q0);
-
-  load_tile<bf16, kD, kLd, 128>(Qs, qg, p.qss, q0, p.Sq, tid);
-  if (n_kv > 0) {
-    load_tile<bf16, kD, kLd, 128>(Ks, kg, p.kss, 0, p.Sk, tid);
-    load_tile<bf16, kD, kLd, 128>(Vs, vg, p.vss, 0, p.Sk, tid);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // this warp's 16 query rows as mma A fragments, kept for the whole loop
-  const int r0 = warp * 16 + g;
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    qf[ks][0] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * kLd + c]);
-    qf[ks][1] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * kLd + c]);
-    qf[ks][2] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * kLd + c + 8]);
-    qf[ks][3] =
-        *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * kLd + c + 8]);
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row_a = q0 + r0, row_b = row_a + 8;
-  const int mi = lane >> 3, rr = lane & 7;  // ldmatrix: matrix, row
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kv) {
-      const int nb = (buf ^ 1) * kBN * kLd;
-      load_tile<bf16, kD, kLd, 128>(Ks + nb, kg, p.kss, (j + 1) * kBN, p.Sk,
-                                    tid);
-      load_tile<bf16, kD, kLd, 128>(Vs + nb, vg, p.vss, (j + 1) * kBN, p.Sk,
-                                    tid);
-    }
-    cp_async_commit();
-    const bf16* Kt = Ks + buf * kBN * kLd;
-    const bf16* Vt = Vs + buf * kBN * kLd;
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kD / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kBN / 16; ++np) {
-        // matrices: keys np*16 + {0, 8} x dims ks*16 + {0, 8}
-        uint32_t kb[4];
-        ldsm_x4(kb, &Kt[(np * 16 + (mi >> 1) * 8 + rr) * kLd + ks * 16 +
-                        (mi & 1) * 8]);
-        mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
-      }
-    }
-
-    const bool need_mask = (j + 1) * kBN > p.Sk ||
-                           (p.causal && (j + 1) * kBN - 1 > q0);
-#pragma unroll
-    for (int n = 0; n < kBN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * p.scale;
-        if (need_mask) {
-          const int col = j * kBN + n * 8 + tig * 2 + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= p.Sk || (p.causal && col > row)) x = kNegInf;
-        }
-        s[n][e] = x;
-      }
-    }
-
-    // online softmax over the tile (rows row_a: e = 0, 1; row_b: e = 2, 3)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kBN / 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    const float corr0 = __expf(m[0] - mx[0]), corr1 = __expf(m[1] - mx[1]);
-    m[0] = mx[0];
-    m[1] = mx[1];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kBN / 8; ++n) {
-      s[n][0] = __expf(s[n][0] - mx[0]);
-      s[n][1] = __expf(s[n][1] - mx[0]);
-      s[n][2] = __expf(s[n][2] - mx[1]);
-      s[n][3] = __expf(s[n][3] - mx[1]);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l[0] = l[0] * corr0 + quad_sum(rs0);
-    l[1] = l[1] * corr1 + quad_sum(rs1);
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-
-    // O += P V: P (bf16, as V's dtype) re-enters as A fragments from the
-    // score registers; V's B fragments through the transposing ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        // matrices: keys kk*16 + {0, 8} x dims dp*16 + {0, 8}
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, &Vt[(kk * 16 + (mi & 1) * 8 + rr) * kLd + dp * 16 +
-                              (mi >> 1) * 8]);
-        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-  }
-
-  const float la = fmaxf(l[0], 1e-30f), lb = fmaxf(l[1], 1e-30f);
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (row_a < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + row_a * p.oss + c) =
-          __floats2bfloat162_rn(acc[n][0] / la, acc[n][1] / la);
-    if (row_b < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + row_b * p.oss + c) =
-          __floats2bfloat162_rn(acc[n][2] / lb, acc[n][3] / lb);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -432,14 +252,21 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(const Params p) {
 
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 and 128: TMA, an mbarrier ring, wgmma, warp specialisation
+// bf16: TMA, an mbarrier ring, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
 namespace hopper {
 
 constexpr int kBN = 128;           // keys per K/V tile
-constexpr int kRowBytes = 128;     // one 128-byte swizzle row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+
+// head dims per TMA box, one swizzle row of the box each: 64 (128 bytes,
+// the 128-byte swizzle) where 64 divides D, else 32 (64 bytes, the 64-byte
+// swizzle); a box's rows lie box_cols * 2 bytes apart in shared memory
+template <int kD>
+__host__ __device__ constexpr int box_cols() {
+  return kD % 64 == 0 ? 64 : 32;
+}
 
 // kWG consumer warpgroups of 64 query rows each, one producer warpgroup;
 // setmaxnreg moves the producer's registers to the consumers
@@ -450,7 +277,7 @@ struct Cfg {
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kLoadRegs = kWG == 2 ? 24 : 32;
   static constexpr int kMmaRegs = kWG == 2 ? 240 : 160;
-  static constexpr int kStages = kD == 64 ? 4 : 3;  // K/V ring depth
+  static constexpr int kStages = kD == 64 ? 4 : kD == 128 ? 3 : 2;  // K/V ring
   static constexpr int kQBytes = kBM * kD * 2;
   static constexpr int kTileBytes = kBN * kD * 2;   // one K or one V tile
   // + 1024: the dynamic buffer is realigned to the swizzle's 1024 bytes
@@ -459,7 +286,7 @@ struct Cfg {
 };
 
 struct Params {
-  CUtensorMap qmap, kmap, vmap;  // (D, S, heads, B) views, 64-dim boxes
+  CUtensorMap qmap, kmap, vmap;  // (D, S, heads, B) views, box_cols boxes
   void* o;
   long long osb, osh, oss;
   int H, Hkv, Sq, Sk, causal;
@@ -523,13 +350,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 (B128)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor of an operand swizzled in kRow-byte rows:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// (128-byte swizzle) or 2 (64-byte swizzle)
+template <int kRow>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(kRow == 128 || kRow == 64, "a 128- or 64-byte swizzle");
+  constexpr uint64_t kLayout = kRow == 128 ? 1 : 2;
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -660,6 +491,47 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 160, f32) += A (64 x 16, registers) * B (16 x 160, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int kD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[kD / 2],
                                          const uint32_t (&a)[4],
@@ -679,6 +551,13 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
   wgmma_rs_n128(o, a, db);
 }
 
+template <>
+__device__ __forceinline__ void wgmma_pv<160>(float (&o)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n160(o, a, db);
+}
+
 // The consumers' named barriers for ping-pong: warpgroup c waits on 1 + c
 // and arrives on the next one's, so they issue their products in turns and
 // one's softmax runs while another's products hold the tensor cores
@@ -691,31 +570,33 @@ __device__ __forceinline__ void named_arrive(int id) {
 }
 
 // S = Q K^T (64 x 128, f32) for one warpgroup: both operands K-major under
-// the 128-byte swizzle, 16 head dims a step, 64 dims per column block
+// the boxes' swizzle, 16 head dims (32 bytes of a swizzle row) a step, one
+// box of rows (kBM or kBN of them) per box_cols dims, 8 rows an atom
 template <int kD, int kBM>
 __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_addr,
                                          uint32_t k_addr) {
+  constexpr int kRow = 2 * box_cols<kD>(), kSteps = box_cols<kD>() / 16;
 #pragma unroll
   for (int ks = 0; ks < kD / 16; ++ks) {
-    const uint32_t qo = (ks / 4) * kBM * kRowBytes + (ks % 4) * 32;
-    const uint32_t ko = (ks / 4) * kBN * kRowBytes + (ks % 4) * 32;
-    wgmma_ss_n128(s, desc_sw128(q_addr + qo, 16, 1024),
-                  desc_sw128(k_addr + ko, 16, 1024), ks > 0);
+    const uint32_t qo = (ks / kSteps) * kBM * kRow + (ks % kSteps) * 32;
+    const uint32_t ko = (ks / kSteps) * kBN * kRow + (ks % kSteps) * 32;
+    wgmma_ss_n128(s, desc_sw<kRow>(q_addr + qo, 16, 8 * kRow),
+                  desc_sw<kRow>(k_addr + ko, 16, 8 * kRow), ks > 0);
   }
 }
 
 // O += P V: P's bf16 A fragments from registers, V N-major (the
-// descriptor's transpose): 8 keys per 1024-byte swizzle atom, the next 64
-// head dims one column block (kBN rows) further
+// descriptor's transpose): 8 keys per swizzle atom, the next box_cols head
+// dims one box (kBN rows) further
 template <int kD>
 __device__ __forceinline__ void issue_pv(float (&o)[kD / 2],
                                          const uint32_t (&pf)[kBN / 16][4],
                                          uint32_t v_addr) {
+  constexpr int kRow = 2 * box_cols<kD>();
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    wgmma_pv<kD>(o, pf[kk],
-                 desc_sw128(v_addr + kk * 16 * kRowBytes, kBN * kRowBytes,
-                            1024));
+    wgmma_pv<kD>(o, pf[kk], desc_sw<kRow>(v_addr + kk * 16 * kRow,
+                                          kBN * kRow, 8 * kRow));
 }
 
 // The online-softmax step of one tile on the S accumulator: mask (diagonal
@@ -806,17 +687,20 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
   using C = Cfg<kD, kWG>;
   constexpr int kBM = C::kBM;
   using bf16 = __nv_bfloat16;
-  constexpr int kCB = kD / 64;  // 64-wide column blocks of the head dim
+  constexpr int kBox = box_cols<kD>();
+  constexpr int kCB = kD / kBox;  // boxes across the head dim
   extern __shared__ unsigned char smem_raw[];
+  // stage t of the ring holds K of tile t and V of tile t - 1, the two
+  // tiles the consumers read in step t (tile t's scores, tile t-1's P V)
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t kv_full[C::kStages];
   __shared__ __align__(8) uint64_t kv_empty[C::kStages];
-  // 128-byte swizzled tiles start on 1024-byte boundaries
+  // swizzled tiles start on 1024-byte boundaries
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* Qs = reinterpret_cast<bf16*>(base);  // [kCB][kBM][64]
-  bf16* Ks = Qs + kBM * kD;                  // [kStages][kCB][kBN][64]
-  bf16* Vs = Ks + C::kStages * kBN * kD;     // [kStages][kCB][kBN][64]
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // [kCB][kBM][kBox]
+  bf16* Ks = Qs + kBM * kD;                  // [kStages][kCB][kBN][kBox]
+  bf16* Vs = Ks + C::kStages * kBN * kD;     // [kStages][kCB][kBN][kBox]
 
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal blocks first
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
@@ -844,19 +728,23 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
       mbar_expect_tx(&q_full, C::kQBytes);
 #pragma unroll
       for (int c = 0; c < kCB; ++c)
-        tma_load(Qs + c * kBM * 64, &p.qmap, &q_full, c * 64, q0, h, b);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % C::kStages;
-        mbar_wait(&kv_empty[s], ((j / C::kStages) & 1) ^ 1);
-        mbar_expect_tx(&kv_full[s], 2 * C::kTileBytes);
+        tma_load(Qs + c * kBM * kBox, &p.qmap, &q_full, c * kBox, q0, h, b);
+      // steps 0..n_kv: K of tile t (t < n_kv) and V of tile t - 1 (t > 0)
+      for (int t = 0; t <= n_kv; ++t) {
+        const int s = t % C::kStages;
+        mbar_wait(&kv_empty[s], ((t / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(&kv_full[s],
+                       ((t < n_kv) + (t > 0)) * C::kTileBytes);
         bf16* kt = Ks + s * kBN * kD;
         bf16* vt = Vs + s * kBN * kD;
 #pragma unroll
         for (int c = 0; c < kCB; ++c) {
-          tma_load(kt + c * kBN * 64, &p.kmap, &kv_full[s], c * 64, j * kBN,
-                   hk, b);
-          tma_load(vt + c * kBN * 64, &p.vmap, &kv_full[s], c * 64, j * kBN,
-                   hk, b);
+          if (t < n_kv)
+            tma_load(kt + c * kBN * kBox, &p.kmap, &kv_full[s], c * kBox,
+                     t * kBN, hk, b);
+          if (t > 0)
+            tma_load(vt + c * kBN * kBox, &p.vmap, &kv_full[s], c * kBox,
+                     (t - 1) * kBN, hk, b);
         }
       }
     }
@@ -874,14 +762,18 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
     // running max (raw score units) and this thread's share of the sum
     r.m_a = r.m_b = kNegInf;
     r.l_a = r.l_b = 0.f;
-    // this warpgroup's 64 rows of Q within each column block
-    const uint32_t q_addr = smem_u32(Qs) + cw * 64 * kRowBytes;
+    // this warpgroup's 64 rows of Q within each box
+    const uint32_t q_addr = smem_u32(Qs) + cw * 64 * 2 * kBox;
     const int first_row = q0 + 64 * cw;
-    auto k_addr = [&](int j) {
-      return smem_u32(Ks + (j % C::kStages) * kBN * kD);
+    // K of tile t and V of tile t - 1 in step t's stage
+    auto k_addr = [&](int t) {
+      return smem_u32(Ks + (t % C::kStages) * kBN * kD);
     };
-    auto v_addr = [&](int j) {
-      return smem_u32(Vs + (j % C::kStages) * kBN * kD);
+    auto v_addr = [&](int t) {
+      return smem_u32(Vs + (t % C::kStages) * kBN * kD);
+    };
+    auto full = [&](int t) {
+      mbar_wait(&kv_full[t % C::kStages], (t / C::kStages) & 1);
     };
     auto need_mask = [&](int j) {
       return (j + 1) * kBN > p.Sk ||
@@ -901,8 +793,8 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
 
     mbar_wait(&q_full, 0);
     if (n_kv > 0) {
-      // tile 0: scores, softmax, P
-      mbar_wait(&kv_full[0], 0);
+      // step 0: tile 0's scores, softmax, P
+      full(0);
       named_sync(1 + cw);
       reg_fence(s);
       wg_fence();
@@ -911,11 +803,12 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
       named_arrive(next);
       wg_wait<0>();
       reg_fence(s);
+      mbar_arrive(&kv_empty[0]);
       softmax_tile(s, r, p, 0, need_mask(0), corr_a, corr_b);
       pack_p(s, pf);
     }
     for (int j = 1; j < n_kv; ++j) {
-      mbar_wait(&kv_full[j % C::kStages], (j / C::kStages) & 1);
+      full(j);
       named_sync(1 + cw);
       reg_fence(s);
       reg_fence(o);
@@ -923,7 +816,7 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
       wg_fence();
       issue_qk<kD, kBM>(s, q_addr, k_addr(j));  // tile j's scores
       wg_commit();
-      issue_pv<kD>(o, pf, v_addr(j - 1));  // tile j-1's P V
+      issue_pv<kD>(o, pf, v_addr(j));  // tile j-1's P V
       wg_commit();
       named_arrive(next);
       wg_wait<1>();  // the scores are in; P V runs on
@@ -932,22 +825,23 @@ __global__ void __launch_bounds__(Cfg<kD, kWG>::kThreads, 1)
       wg_wait<0>();
       reg_fence(o);
       reg_fence(pf);
-      mbar_arrive(&kv_empty[(j - 1) % C::kStages]);  // tile j-1 is done
+      mbar_arrive(&kv_empty[j % C::kStages]);  // step j's tiles are read
       rescale<kD>(o, corr_a, corr_b);
       pack_p(s, pf);
     }
     if (n_kv > 0) {
-      // the last tile's P V
+      // step n_kv: the last tile's P V
+      full(n_kv);
       named_sync(1 + cw);
       reg_fence(o);
       reg_fence(pf);
       wg_fence();
-      issue_pv<kD>(o, pf, v_addr(n_kv - 1));
+      issue_pv<kD>(o, pf, v_addr(n_kv));
       wg_commit();
       if (cw < kWG - 1) named_arrive(next);
       wg_wait<0>();
       reg_fence(o);
-      mbar_arrive(&kv_empty[(n_kv - 1) % C::kStages]);
+      mbar_arrive(&kv_empty[n_kv % C::kStages]);
     }
 
     const float la = quad_sum(r.l_a), lb = quad_sum(r.l_b);
@@ -995,21 +889,26 @@ EncodeTiled encode_tiled() {
 }
 
 // a (D, S, heads, B) bf16 view with element strides (sb, sh, ss) and the
-// head dim contiguous, read in boxes of 64 dims x box_rows rows under the
-// 128-byte swizzle; rows past S read as zeros
+// head dim contiguous, read in boxes of box_dims dims x box_rows rows under
+// the 128-byte (box_dims 64) or 64-byte (box_dims 32) swizzle; rows past S
+// read as zeros
 bool encode(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-            int B, long long sb, long long sh, long long ss, int box_rows) {
+            int B, long long sb, long long sh, long long ss, int box_dims,
+            int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_dims, (cuuint32_t)box_rows, 1,
+                             1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            box_dims == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1017,11 +916,14 @@ template <int kD, int kWG>
 cudaError_t launch(const ::Params& a, int B, cudaStream_t stream) {
   using C = Cfg<kD, kWG>;
   Params p;
+  constexpr int kBox = box_cols<kD>();
   const int sk = a.Sk > 0 ? a.Sk : 1;  // Sk = 0 visits no tile
-  if (!encode(&p.qmap, a.q, kD, a.Sq, a.H, B, a.qsb, a.qsh, a.qss,
+  if (!encode(&p.qmap, a.q, kD, a.Sq, a.H, B, a.qsb, a.qsh, a.qss, kBox,
               C::kBM) ||
-      !encode(&p.kmap, a.k, kD, sk, a.Hkv, B, a.ksb, a.ksh, a.kss, kBN) ||
-      !encode(&p.vmap, a.v, kD, sk, a.Hkv, B, a.vsb, a.vsh, a.vss, kBN))
+      !encode(&p.kmap, a.k, kD, sk, a.Hkv, B, a.ksb, a.ksh, a.kss, kBox,
+              kBN) ||
+      !encode(&p.vmap, a.v, kD, sk, a.Hkv, B, a.vsb, a.vsh, a.vss, kBox,
+              kBN))
     return cudaErrorInvalidValue;
   p.o = a.o;
   p.osb = a.osb;
@@ -1056,19 +958,13 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
   return cudaGetLastError();
 }
 
-// the first design: f32 at every D, bf16 at D = 160
+// f32 at every D
 template <int kD>
-cudaError_t launch_d(bool is_f32, int B, const Params& p,
-                     cudaStream_t stream) {
+cudaError_t launch_f32(int B, const Params& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((p.Sq + kBM - 1) / kBM), (unsigned)(B * p.H));
-  if (is_f32) {
-    const size_t smem =
-        sizeof(float) * ((size_t)(kBM + 2 * kBN) * (kD + 4) + kBM * (kBN + 1));
-    return launch(flash_f32_kernel<kD>, 256, smem, grid, p, stream);
-  }
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kBM + 4 * kBN) *
-                      (kD + 8);
-  return launch(flash_bf16_mma_kernel<kD>, 128, smem, grid, p, stream);
+  const size_t smem =
+      sizeof(float) * ((size_t)(kBM + 2 * kBN) * (kD + 4) + kBM * (kBN + 1));
+  return launch(flash_f32_kernel<kD>, 256, smem, grid, p, stream);
 }
 
 }  // namespace
@@ -1077,8 +973,8 @@ cudaError_t launch_d(bool is_f32, int B, const Params& p,
 // all bf16 (is_f32 0) or all f32 (is_f32 1), addressed through the given
 // element strides (batch, head, position) with the head dim contiguous.
 // Every pointer and every stride times the element size is a multiple of 16
-// bytes; H % Hkv == 0; D is 64, 128 or 160; B * H <= 65535.  bf16 at D = 64
-// and 128 runs the wgmma/TMA kernel, the rest the first design.  Returns the
+// bytes; H % Hkv == 0; D is 64, 128 or 160; B * H <= 65535.  bf16 runs the
+// wgmma/TMA kernel, f32 the FMA kernel.  Returns the
 // CUDA status of the tensor maps' encoding and the launch
 // (cudaErrorInvalidValue for an unsupported D or more than 65535 query
 // blocks).
@@ -1108,12 +1004,14 @@ extern "C" int repro_flash_attention(
   const bool f32 = is_f32 != 0;
   switch (D) {
     case 64:
-      return (int)(f32 ? launch_d<64>(true, B, p, stream)
+      return (int)(f32 ? launch_f32<64>(B, p, stream)
                        : hopper::launch<64, 3>(p, B, stream));
     case 128:
-      return (int)(f32 ? launch_d<128>(true, B, p, stream)
+      return (int)(f32 ? launch_f32<128>(B, p, stream)
                        : hopper::launch<128, 2>(p, B, stream));
-    case 160: return (int)launch_d<160>(f32, B, p, stream);
+    case 160:
+      return (int)(f32 ? launch_f32<160>(B, p, stream)
+                       : hopper::launch<160, 2>(p, B, stream));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,12 +4,17 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the TPU
 kernel) and, through ``ops.attention``, its padding wrapper.  The CUDA
 source is ``csrc/flash_attention.cu``; its header note says what bounds the
 function on an H100 (operations: 4·D flops per visible (query, key) pair)
-and what the design does about it (bf16 at D = 64 and 128: a producer
-warpgroup streaming K/V tiles by TMA through an mbarrier ring, three (D =
-64) or two (D = 128) consumer warpgroups of 64 query rows on ``wgmma``,
-taking turns, with the running max, sum and accumulator in registers;
-causal blocks stop at the diagonal; D = 160 and float32 keep the first
-``mma.sync``/FMA design).
+and what the design does about it.  bf16, at every D: a producer warpgroup
+streaming K/V tiles of 128 keys by TMA through an mbarrier ring, three (D =
+64) or two (D = 128, 160) consumer warpgroups of 64 query rows on
+``wgmma``, taking turns, with the running max, sum and accumulator in
+registers; causal blocks stop at the diagonal.  The head dim is read in
+boxes of 64 dims under the 128-byte swizzle, or at D = 160 in five boxes of
+32 dims under the 64-byte swizzle (no padded column), and P·V is one
+m64nDk16 chain (N = 160 at D = 160, 80 f32 accumulators a thread).  At D =
+160 a block holds Q (128 rows) and two stages of K and V tiles, 205,824
+bytes of shared memory.  float32 keeps the first design (FMAs, the check
+path).
 
 Beyond the TPU kernel's contract, the kernel masks the ragged edge itself
 (any Sq and Sk, no padded copy), reads K and V of query head ``h`` from KV

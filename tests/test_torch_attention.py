@@ -130,16 +130,21 @@ def test_gqa_grouping_matches_online_attention(H, Hkv):
     close(got, want, 2e-5)
 
 
-@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal", [
-    (1, 2, 2, 127, 127, True), (1, 2, 1, 129, 257, True),
-    (2, 4, 2, 255, 255, True), (1, 2, 2, 257, 129, False)])
+TILE_EDGES = [(1, 2, 2, 127, 127, True), (1, 2, 1, 129, 257, True),
+              (2, 4, 2, 255, 255, True), (1, 2, 2, 257, 129, False)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,D", [
+    pytest.param(*c, D, id="-".join(map(str, c)) + ("" if D == 64 else
+                                                     f"-D{D}"))
+    for D in (64, 160) for c in TILE_EDGES])
 def test_flash_attention_tile_edges_match_reference(B, H, Hkv, Sq, Sk,
-                                                    causal):
+                                                    causal, D):
     """The wrapper (its plain version on CPU) vs the reference's oracle at
     the CUDA kernel's block and tile edges (128 keys a tile; 192 or 128
-    query rows a block), with GQA, on (B, S, H, D) tensors viewed as
-    (B, H, S, D): the inputs tests/test_torch_cuda.py holds the kernel to."""
-    D = 64
+    query rows a block), with GQA, at D = 64 and at D = 160 (five 32-dim
+    boxes), on (B, S, H, D) tensors viewed as (B, H, S, D): the inputs
+    tests/test_torch_cuda.py holds the kernel to."""
     (jq, jk, jv), (q, k, v) = inputs(5, (B, Sq, H, D), (B, Sk, Hkv, D),
                                      "f32")
     G = H // Hkv

@@ -314,10 +314,10 @@ def test_segment_sum_edges_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_attention_edges_on_card(cuda_device):
-    """The wgmma kernel's tile edges (128 query rows a block, 128 keys a
-    tile): Sq and Sk one off a multiple of 128, causal and not, B > 1 with
-    GQA, and D = 128 at Sq = 2,048; the same per-row bar and q x 1.03
-    control as above."""
+    """The wgmma kernel's tile edges (128 query rows a block at D = 128
+    and 160, 192 at D = 64; 128 keys a tile): Sq and Sk one off a multiple
+    of 128, causal and not, Sq < Sk, B > 1 with GQA, and D = 128 and 160
+    at Sq = 2,048; the same per-row bar and q x 1.03 control as above."""
     rng = np.random.default_rng(5)
     cases = [  # B, H, Hkv, Sq, Sk, D, causal
         (1, 4, 4, 127, 127, 64, True),
@@ -329,6 +329,14 @@ def test_flash_attention_edges_on_card(cuda_device):
         (3, 8, 2, 257, 257, 64, True),
         (2, 6, 3, 255, 255, 128, False),
         (1, 24, 8, 2048, 2048, 128, True),
+        (1, 4, 4, 127, 127, 160, True),
+        (1, 4, 2, 129, 129, 160, True),
+        (1, 2, 2, 129, 257, 160, True),
+        (1, 4, 4, 257, 255, 160, False),
+        (1, 2, 2, 255, 127, 160, False),
+        (3, 8, 2, 257, 257, 160, True),
+        (2, 6, 3, 255, 255, 160, False),
+        (1, 32, 8, 2048, 2048, 160, True),
     ]
     for B, H, Hkv, Sq, Sk, D, causal in cases:
         q = t(rng.standard_normal((B, Sq, H, D), dtype=np.float32))

@@ -3,7 +3,8 @@ true profile entry that ``thresholds``/``kernel_default`` and
 ``resolve_plan`` read, merged into an existing file; it refuses to run
 without a card unless told ``--device cpu``; and the build-budget gate
 passes on the CPU (both digests equal the committed ba4k fingerprint,
-the chunked build inside its budget).  Timing verdicts taken on the CPU
+the chunked build inside its budget); the flash-attention variant tool
+refuses to build without a card.  Timing verdicts taken on the CPU
 say nothing of a card, so only the schema is held here; the card's entry
 is committed from a chip run.
 """
@@ -18,6 +19,7 @@ from repro_torch.core import planner_profile as PP
 from repro_torch.core.api import NucleusConfig
 from repro_torch.tools import calibrate_planner as CP
 from repro_torch.tools import check_build_budget as CB
+from repro_torch.tools import flash_variants as FV
 
 # one intra-op thread: the suite runs its workers on shared cores
 torch.set_num_threads(1)
@@ -83,6 +85,22 @@ def test_tools_refuse_to_run_without_a_card(tmp_path):
     assert not (tmp_path / "p.json").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CB.gate("cuda")
+
+
+def test_flash_variants_needs_a_card_and_covers_every_head_dim(
+        monkeypatch):
+    """Without a card the tool raises before it builds anything, and its
+    edge cases hold every head dim the kernel takes to the twin."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert {c[5] for c in FV.EDGE_CASES} == set(HEAD_DIMS)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool runs on it")
+
+    def no_build(*a):
+        raise AssertionError("built without a card")
+    monkeypatch.setattr(FV, "build", no_build)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FV.main(["-"])
 
 
 def test_build_gate_passes_on_the_cpu():
