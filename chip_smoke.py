@@ -15,11 +15,12 @@ compressed reduction and a sharded pool), MoE and MLA inference of
 moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width, LM training
 of minicpm-2b at full width (AdamW steps, checkpoints), the recsys (din)
 and GNN (gin-tu, egnn, dimenet, mace) families at their published widths,
-and last minicpm-2b's training sharded over a (2, 2) named mesh with the
-elastic re-mesh restore (the last three run no kernel), and last the
-port's tooling (the planner calibration, the build-budget gate, the dry
-run).  Every kernel of those paths is checked against its plain-torch
-version on the card.
+then minicpm-2b's training sharded over a (2, 2) named mesh with the
+elastic re-mesh restore (the last three run no kernel), the port's
+tooling (the planner calibration, the build-budget gate, the dry run),
+and last the reference's six examples as the port's entry points and
+Erdos-Renyi graphs up to ten million edges.  Every kernel of those paths
+is checked against its plain-torch version on the card.
 Phases (any failure ends the run with a non-zero exit):
 
   1. device report and kernel build (nvcc, from src/repro_torch/kernels/csrc),
@@ -161,7 +162,16 @@ Phases (any failure ends the run with a non-zero exit):
      minicpm-2b's train_4k on a device-less (2, 2) mesh, its slot bytes
      equal to phase 14's and its FLOPs per token within 5 % of 6ND +
      attention;
- 16. a JSON line of per-kernel numbers, the card's name and power limit,
+ 16. the reference's examples as the port's entry points and the
+     Erdos-Renyi graphs (``phase_examples``): the six
+     ``repro_torch.examples`` through their ``main`` at the reference's
+     default arguments (quickstart's and approx_vs_exact's cores and
+     rounds, graph_pipeline's curated edges equal to the CPU's,
+     elastic_restart's drift 0.0), each one's seconds and launches
+     logged; er2k at (1,2), (2,3), (3,4) card == CPU; the 10^7-edge
+     ``erdos_renyi_sparse`` graph at (2,3) (megakernel launches ==
+     rounds) and (1,2) (segment-sum launches == rounds);
+ 17. a JSON line of per-kernel numbers, the card's name and power limit,
      and the result line.
 
 It needs a CUDA card and nvcc; it imports nothing of JAX or of the JAX
@@ -3080,6 +3090,147 @@ def phase_tooling(slot_bytes: int):
             "kernel_rounds": res["kernel_rounds"]}
 
 
+# phase 16: the reference's examples as the port's entry points, and the
+# Erdos-Renyi graphs of the reference's benchmark suite and at smoke scale
+ER2K = (2_000, 16_000, 2)          # (n, m_target, seed): the suite's er2k
+ER_BIG = (1_000_000, 10_000_000, 2)  # mean degree 20, ~1,300 triangles
+EXAMPLE_KERNELS = ("peel_round", "segment_sum", "flash_attention")
+
+
+def run_example(name: str, argv, **kw):
+    """(figures, wall s, launches) of ``repro_torch.examples.<name>``'s
+    ``main(argv, **kw)``; the launch counts are reset before the call."""
+    import importlib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    reset_launch_counts()
+    out, s = timed(lambda: mod.main(argv, **kw))
+    counts = {k: launch_counts[k] for k in EXAMPLE_KERNELS}
+    return out, s, counts
+
+
+def er_decompose(g, cfg, what: str):
+    """``decompose(g, cfg)`` on the card, its core checked by the support
+    condition; logs its seconds and peak memory and returns (rounds,
+    launches)."""
+    from repro_torch import decompose
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    dec, s = timed(lambda: decompose(g, cfg))
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p = dec.problem
+    require(exact_core_support_ok(p, torch.as_tensor(dec.core,
+                                                     device="cuda")),
+            f"{what}: an r-clique of core k lies in < k s-cliques of core "
+            f">= k")
+    log(f"[examples] {what}: n_r={p.n_r} n_s={p.n_s} rounds={dec.rounds} "
+        f"core max {int(dec.core.max())} decompose_s={s:.3f} peak "
+        f"{peak:.2f} GB launches={counts}")
+    return dec.rounds, counts
+
+
+def phase_examples():
+    """Phase 16: (a) the six examples of ``repro_torch.examples`` on the
+    card, each through its ``main`` at the reference's default arguments:
+    quickstart's and approx_vs_exact's cores and rounds equal to the same
+    calls on the CPU, graph_pipeline's curated edge set equal to the
+    CPU's, elastic_restart's drift 0.0; each one's wall seconds and
+    kernel launches logged.  (b) er2k (``erdos_renyi_sparse(2000, 16000,
+    seed=2)``) at (1,2), (2,3) and (3,4), core, rounds and every cut equal
+    to the CPU's; ``erdos_renyi_sparse(10^6, 10^7, seed=2)`` through
+    ``decompose`` at (2,3) (megakernel launches == rounds) and (1,2)
+    (segment-sum launches == rounds), each core checked by the support
+    condition.  The examples and graphs are seeded by their own
+    arguments, as the reference's are.  Returns the megakernel launches
+    at (2,3) and the segment-sum launches at (1,2)."""
+    import tempfile
+    from repro_torch import NucleusConfig, decompose
+    from repro_torch.examples import graph_pipeline
+    from repro_torch.graph.generators import erdos_renyi_sparse
+
+    # -- (a) the six examples ------------------------------------------------
+    def report(name, s, counts, extra=""):
+        log(f"[examples] {name}: {s:.2f} s on the card, launches {counts}"
+            f"{extra}")
+
+    for name in ("quickstart", "approx_vs_exact"):
+        card, s, counts = run_example(name, [])
+        cpu, cpu_s, _ = run_example(name, ["--device", "cpu"])
+        runs = [("", card, cpu)]
+        if name == "approx_vs_exact":
+            runs = [("exact", card["exact"], cpu["exact"])] + [
+                (f"delta={d}", card["approx"][d], cpu["approx"][d])
+                for d in card["approx"]]
+        for what, a, b in runs:
+            require(np.array_equal(a["core"], b["core"]) and
+                    a["rounds"] == b["rounds"],
+                    f"{name} {what}: core or rounds differ between card and "
+                    f"CPU")
+        report(name, s, counts, f"; cores and rounds equal to the CPU's "
+               f"({cpu_s:.2f} s)")
+    card, s, counts = run_example("graph_pipeline", [])
+    g_cpu, _ = graph_pipeline.make_task(device="cpu")
+    require(np.array_equal(card["curated_edges"], graph_pipeline.curate(
+        g_cpu)[0].edges.numpy()),
+            "graph_pipeline: the curated edge set differs between card and "
+            "CPU")
+    report("graph_pipeline", s, counts, f"; curated edges "
+           f"({card['m_curated']}) equal to the CPU's; acc raw "
+           f"{card['acc_raw']:.3f} curated {card['acc_curated']:.3f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        card, s, counts = run_example("elastic_restart", [], tmp_dir=tmp)
+        require(card["drift"] == 0.0, f"elastic_restart: drift "
+                f"{card['drift']} != 0.0")
+        report("elastic_restart", s, counts, f"; drift {card['drift']}")
+        card, s, counts = run_example(
+            "train_lm", ["--ckpt-dir", os.path.join(tmp, "train_lm")])
+        require(card["steps_done"] == 300 and
+                bool(np.isfinite(card["losses"]).all()),
+                "train_lm: not 300 finite steps")
+        report("train_lm", s, counts, f"; loss {card['losses'][0]:.3f} -> "
+               f"{card['losses'][-1]:.3f}")
+    card, s, counts = run_example("serve_lm", [])
+    report("serve_lm", s, counts)
+
+    # -- (b) the Erdos-Renyi graphs ------------------------------------------
+    n, m, sd = ER2K
+    er2k = {dev: erdos_renyi_sparse(n, m, seed=sd, device=dev)
+            for dev in ("cuda", "cpu")}
+    for r, s_ in ((1, 2), (2, 3), (3, 4)):
+        cfg = NucleusConfig(r=r, s=s_)
+        card, card_s = timed(lambda: decompose(er2k["cuda"], cfg))
+        cpu = decompose(er2k["cpu"], cfg, device="cpu")
+        require(np.array_equal(card.core, cpu.core) and
+                card.rounds == cpu.rounds,
+                f"er2k ({r},{s_}): core or rounds differ")
+        levels = sorted({int(c) for c in cpu.core if c > 0})
+        for c in levels:
+            require(np.array_equal(card.cut(c), cpu.cut(c)),
+                    f"er2k ({r},{s_}): cut({c}) differs")
+        log(f"[examples] er2k ({r},{s_}): n={n} m={er2k['cpu'].m} "
+            f"n_r={cpu.n_r} n_s={cpu.problem.n_s} rounds={cpu.rounds} "
+            f"card_s={card_s:.3f}: core, rounds and {len(levels)} cuts "
+            f"equal to the CPU's")
+    del er2k
+
+    n, m, sd = ER_BIG
+    g, build_s = timed(lambda: erdos_renyi_sparse(n, m, seed=sd,
+                                                  device="cuda"))
+    log(f"[examples] erdos_renyi_sparse({n}, {m}, seed={sd}) on the card: "
+        f"m={g.m} in {build_s:.2f} s")
+    rounds23, c23 = er_decompose(g, NucleusConfig(), "ER (2,3)")
+    require(c23["peel_round"] == rounds23 and c23["segment_sum"] == 0,
+            f"ER (2,3): launches {c23} over {rounds23} rounds")
+    rounds12, c12 = er_decompose(g, NucleusConfig(r=1, s=2), "ER (1,2)")
+    require(c12["segment_sum"] == rounds12 and c12["peel_round"] == 0,
+            f"ER (1,2): launches {c12} over {rounds12} rounds")
+    del g
+    torch.cuda.empty_cache()
+    return c23["peel_round"], c12["segment_sum"]
+
+
 def log_phase(k: int, since: float) -> float:
     now = time.perf_counter()
     log(f"[phase {k}] {now - since:.2f} s")
@@ -3461,7 +3612,12 @@ def main() -> int:
     phase_tooling(shard["slot_bytes"])
     phase_t = log_phase(15, phase_t)
 
-    # -- phase 16: the result lines -----------------------------------------
+    # -- phase 16: the examples and the Erdos-Renyi graphs -------------------
+    rows[0]["er_sparse_launches"], rows[1]["er_sparse_launches"] = \
+        phase_examples()
+    phase_t = log_phase(16, phase_t)
+
+    # -- phase 17: the result lines -----------------------------------------
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on its path")
     require(rows[1]["kcore_launches"] > 0,

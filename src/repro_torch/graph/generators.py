@@ -1,9 +1,10 @@
 """Seeded graph generators (numpy), counterpart of ``repro.graph.generators``.
 
-The golden-fixture suite and ``barabasi_albert`` are copies of the
-reference's, so the port's tests re-derive the same graphs from the same
-seeds.  ``community_power_law`` is the port's own: a vectorized generator
-of ~10^6-vertex graphs with many triangles, used by ``chip_smoke.py``.
+The golden-fixture suite, ``barabasi_albert`` and ``erdos_renyi_sparse``
+are copies of the reference's, so the port's tests re-derive the same
+graphs from the same seeds.  ``community_power_law`` is the port's own: a
+vectorized generator of ~10^6-vertex graphs with many triangles, used by
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,19 @@ def erdos_renyi(n: int, p: float, seed: int = 0,
     mask = rng.random(iu[0].shape[0]) < p
     edges = np.stack([iu[0][mask], iu[1][mask]], axis=1)
     return make_graph(n, edges, device)
+
+
+def erdos_renyi_sparse(n: int, m_target: int, seed: int = 0,
+                       device: DeviceLike = None) -> Graph:
+    """O(m) sampling for large sparse graphs: 2·m_target draws of each
+    endpoint, self-loops dropped, the first m_target pairs kept
+    (duplicates are left to ``make_graph``)."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n, size=2 * m_target)
+    v = rng.integers(0, n, size=2 * m_target)
+    keep = u != v
+    return make_graph(n, np.stack([u[keep], v[keep]], axis=1)[:m_target],
+                      device)
 
 
 def barabasi_albert(n: int, k: int, seed: int = 0,

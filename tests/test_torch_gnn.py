@@ -7,15 +7,18 @@ The same numpy inputs go through both: parameters drawn with numpy at the
 reference's names, shapes and dtypes (``jax.eval_shape`` of its
 ``init_params``, so its init is never compiled), carried across by
 ``tree.params_from_reference``.  The reference's losses and steps are
-jitted once per config, arch and level.  Integer arrays (triplets,
-sampled blocks, streams, molecules, union-find) must be bit-identical;
-floats are float32 at the smoke widths, with the tolerances stated per
-test.
+jitted once per config, arch and level, and each program's result is
+computed once, on a few threads from the module's first test on (XLA's
+compiles release the interpreter lock) while the tests of the integer
+arrays run.  Integer arrays (triplets, sampled blocks, streams,
+molecules, union-find) must be bit-identical; floats are float32 at the
+smoke widths, with the tolerances stated per test.
 """
 import dataclasses
 import functools
 import importlib.util
 import os
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +51,7 @@ from repro_torch.models.gnn_common import (build_triplets,
                                            make_batch_from_arrays)
 from repro_torch.optim import adamw as A
 from repro_torch.tree import flatten_with_paths, params_from_reference
+from test_torch_facade import _once
 
 # one intra-op thread: the suite runs its workers on shared cores, and
 # idle OpenMP threads spin against the other workers' tests
@@ -163,6 +167,53 @@ def j_reference(jc, arch, n_graphs, node_level):
 
 
 j_apply_updates = jax.jit(JA.apply_updates, static_argnums=3)
+
+_POOL = ThreadPoolExecutor(max_workers=4, thread_name_prefix="reference")
+
+
+def reference_run(arch, node_level, layers=None):
+    """The reference's (loss, gradient, forward outputs) of ``case``'s
+    inputs (with ``layers`` layers: ``n_layers`` of the smoke config), on
+    the host, once."""
+    def run():
+        jc, _ = pair(arch, node_level)
+        if layers is not None:
+            jc = dataclasses.replace(jc, n_layers=layers)
+        batch, n_graphs = (node_batch(arch, jc.d_in) if node_level
+                           else molecule_batch(arch, jc.d_in))
+        return jax.device_get(j_reference(jc, arch, n_graphs, node_level)(
+            j_params(arch, jc), on_jax(batch)))
+    return _once(("gnn run", arch, node_level, layers), run)
+
+
+def reference_step(arch, node_level):
+    """The reference's ``gnn_train_step`` of ``case``'s inputs from zero
+    moments: its gradient and ``apply_updates``, once."""
+    def run():
+        jc, _ = pair(arch, node_level)
+        jp = j_params(arch, jc)
+        zeros = jax.tree.map(lambda p: np.zeros(p.shape, np.float32), jp)
+        jstate = JA.AdamWState(step=np.zeros((), np.int32), mu=zeros,
+                               nu=jax.tree.map(np.copy, zeros))
+        _, jg, _ = reference_run(arch, node_level)
+        return jax.device_get(j_apply_updates(jp, jg, jstate, J_OPT))
+    return _once(("gnn step", arch, node_level), run)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_pool():
+    """Every reference program of the module's float tests, submitted to
+    the pool when the module's first test runs (costliest first); at the
+    end, pending work is dropped and running work waited for."""
+    cases = [(a, nl) for a in ("dimenet", "egnn", "mace", "gin-tu")
+             for nl in (False, True)]
+    futures = [_POOL.submit(reference_run, a, nl) for a, nl in cases]
+    futures.append(_POOL.submit(reference_run, "mace", False, 2))
+    futures += [_POOL.submit(reference_step, a, nl) for a, nl in cases]
+    yield
+    for f in futures:
+        f.cancel()
+    wait(futures)
 
 
 def assert_tree_close(got, want, rtol, atol, what):
@@ -351,7 +402,7 @@ def test_forward_matches_reference(arch):
     """``forward`` on the molecule batch: graph outputs at rtol 1e-5 (and
     egnn's coordinates, mace's irreps)."""
     jc, tc, batch, n_graphs, jp, tp = case(arch, node_level=False)
-    want = j_reference(jc, arch, n_graphs, False)(jp, on_jax(batch))[2]
+    want = reference_run(arch, False)[2]
     got = getattr(S._GNN[arch], "forward")(
         tp, S._rebatch(on_torch(batch), n_graphs), tc)
     if arch in ("egnn", "mace"):
@@ -377,8 +428,7 @@ def test_gnn_loss_and_gradient_match_reference(arch, node_level):
     masked edges, nodes, triplets and labels.  A leaf the loss does not
     reach has a zero gradient on both sides."""
     jc, tc, batch, n_graphs, jp, tp = case(arch, node_level)
-    jl, jg, _ = j_reference(jc, arch, n_graphs, node_level)(jp,
-                                                           on_jax(batch))
+    jl, jg, _ = reference_run(arch, node_level)
     loss, grads = S.value_and_grad(S.gnn_loss, tp, on_torch(batch), tc,
                                    arch, n_graphs, node_level)
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
@@ -401,12 +451,8 @@ def test_gnn_train_step_matches_reference(arch, node_level):
     direction set by float32 rounding, g / (|g| + eps), so those entries
     are held to one step's size, lr."""
     jc, tc, batch, n_graphs, jp, tp = case(arch, node_level)
-    zeros = jax.tree.map(lambda p: np.zeros(p.shape, np.float32), jp)
-    jstate = JA.AdamWState(step=np.zeros((), np.int32), mu=zeros,
-                           nu=jax.tree.map(np.copy, zeros))
-    jl, jg, _ = j_reference(jc, arch, n_graphs, node_level)(jp,
-                                                           on_jax(batch))
-    jp2, js2, jm = j_apply_updates(jp, jg, jstate, J_OPT)
+    jl = reference_run(arch, node_level)[0]
+    jp2, js2, jm = reference_step(arch, node_level)
     tp2, ts2, tm = S.gnn_train_step(tp, A.init_state(tp), on_torch(batch),
                                     tc, arch, n_graphs, node_level, OPT)
     np.testing.assert_allclose(float(tm["loss"]), float(jl), rtol=1e-5)
@@ -449,15 +495,11 @@ def test_unreached_leaves_match_reference(arch, layers, node_level):
     demand a zero gradient there and a change of every other leaf.  The
     smoke mace has one layer, so a 2-layer mace (on molecules) separates
     its first layer's leaves from its last's."""
-    jc, tc = pair(arch, node_level)
+    tc = pair(arch, node_level)[1]
     if layers is not None:
-        jc = dataclasses.replace(jc, n_layers=layers)
         tc = dataclasses.replace(tc, n_layers=layers)
-    batch, n_graphs = (node_batch(arch, jc.d_in) if node_level
-                       else molecule_batch(arch, jc.d_in))
-    _, jg, _ = j_reference(jc, arch, n_graphs, node_level)(
-        j_params(arch, jc), on_jax(batch))
-    zero = sorted(k for k, g in flatten_with_paths(jax.device_get(jg))
+    _, jg, _ = reference_run(arch, node_level, layers)
+    zero = sorted(k for k, g in flatten_with_paths(jg)
                   if not np.any(np.asarray(g)))
     assert zero == _chip_smoke().gnn_unreached(arch, tc)
 

@@ -11,25 +11,39 @@ compared here on the seeded graph and, for the goldens, in
 tests/test_torch_incidence.py, which compiles the same reference programs
 for ``pick_rank`` anyway; the expansion and the CSR here take the port's
 DAG as the input both packages get.
+
+``erdos_renyi_sparse`` gives the reference's edges bit for bit, and the
+benchmark suite's er2k graph decomposes to the reference's core, rounds
+and cut partitions at (1,2), (2,3) and (3,4) (the reference's
+``decompose`` fed the port's incidence arrays, as in
+tests/test_torch_facade.py).
 """
 from concurrent.futures import ThreadPoolExecutor, wait
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.core as jcore
+from repro.core.incidence import NucleusProblem as JProblem
 from repro.graph import container as jcontainer
 from repro.graph import orientation as jorient
 from repro.graph.cliques import (_expand_levels_np, lexsort_rows as
                                  j_lexsort, sort_join_np)
+from repro.graph.generators import erdos_renyi_sparse as j_er_sparse
 from repro.graph.generators import golden_suite as j_golden_suite
 from repro.graph.unionfind import uf_union_edges as j_uf_union_edges
 
+from repro_torch import NucleusConfig, decompose
+from repro_torch.core import build_problem
+from repro_torch.core.incidence import INCIDENCE_FIELDS
 from repro_torch.graph import (csr_from_pairs, expand_levels, lexsort_rows,
                                make_graph, orient, sort_join,
                                uf_union_edges)
 from repro_torch.graph import orientation as torient
-from repro_torch.graph.generators import golden_suite
+from repro_torch.graph.generators import erdos_renyi_sparse, golden_suite
+from test_torch_facade import _once
 
 # one intra-op thread: the suite runs its workers on shared cores, and
 # idle OpenMP threads spin against the other workers' tests
@@ -159,3 +173,85 @@ def test_sort_join_and_union_find(name):
     v = rng.integers(0, n, size=2 * n).astype(np.int32)
     eq(j_uf_union_edges(init, u, v),
        uf_union_edges(t(init), t(u), t(v)), "uf_union_edges")
+
+
+# (n, m_target, seed): the benchmark suite's er2k graph, a dense draw,
+# a one-vertex graph (every draw a self-loop) and an empty draw
+ER_SPARSE = [(2000, 16000, 2), (50, 2000, 0), (1, 5, 0), (3, 0, 1),
+             (0, 5, 0)]
+ER2K = (2000, 16000, 2)
+ER2K_RS = [(1, 2), (2, 3), (3, 4)]
+
+
+def reference_problem(pp):
+    """The reference's NucleusProblem on the port's incidence arrays (its
+    eager jnp build compiles op by op)."""
+    return JProblem(g=jcontainer.Graph(n=pp.g.n,
+                                       edges=jnp.asarray(pp.g.edges.numpy())),
+                    r=pp.r, s=pp.s,
+                    **{f: jnp.asarray(getattr(pp, f).numpy())
+                       for f in INCIDENCE_FIELDS},
+                    orientation=pp.orientation)
+
+
+def reference_er_sparse(n, m, seed):
+    """The reference's edges (or the exception it raises), once."""
+    def run():
+        try:
+            return np.asarray(j_er_sparse(n, m, seed=seed).edges)
+        except ValueError as e:  # n = 0: numpy's integers(0, 0) raises
+            return e
+    return _once(("graph", "er_sparse", n, m, seed), run)
+
+
+def reference_er2k(r, s):
+    """The reference's decompose of er2k at (r, s), on the port's
+    incidence arrays, as (core, rounds, {c: cut(c)}), once."""
+    def run():
+        g = erdos_renyi_sparse(*ER2K[:2], seed=ER2K[2], device="cpu")
+        dec = jcore.decompose(
+            reference_problem(build_problem(g, r, s, device="cpu")),
+            jcore.NucleusConfig(r=r, s=s))
+        core = np.asarray(dec.core)
+        return core, dec.rounds, {c: np.asarray(dec.cut(c)) for c in
+                                  sorted({int(x) for x in core if x > 0})}
+    return _once(("graph", "er2k", r, s), run)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_er_pool():
+    """The reference's side of the Erdos-Renyi tests, computed on a few
+    threads from the module's first test on; pending work dropped at the
+    end."""
+    with ThreadPoolExecutor(max_workers=2,
+                            thread_name_prefix="reference") as pool:
+        futures = [pool.submit(reference_er_sparse, *c) for c in ER_SPARSE]
+        futures += [pool.submit(reference_er2k, *rs) for rs in ER2K_RS]
+        yield
+        for f in futures:
+            f.cancel()
+        wait(futures)
+
+
+@pytest.mark.parametrize("n,m,seed", ER_SPARSE,
+                         ids=[f"n{n}_m{m}_s{s}" for n, m, s in ER_SPARSE])
+def test_erdos_renyi_sparse_matches_reference(n, m, seed):
+    want = reference_er_sparse(n, m, seed)
+    if isinstance(want, Exception):
+        with pytest.raises(type(want)):
+            erdos_renyi_sparse(n, m, seed=seed, device="cpu")
+        return
+    got = erdos_renyi_sparse(n, m, seed=seed, device="cpu")
+    assert got.n == n
+    eq(want, got.edges, "erdos_renyi_sparse edges")
+
+
+@pytest.mark.parametrize("r,s", ER2K_RS)
+def test_er2k_decompose_matches_reference(r, s):
+    g = erdos_renyi_sparse(*ER2K[:2], seed=ER2K[2], device="cpu")
+    got = decompose(g, NucleusConfig(r=r, s=s), device="cpu")
+    core, rounds, cuts = reference_er2k(r, s)
+    np.testing.assert_array_equal(got.core, core)
+    assert got.rounds == rounds
+    for c, want in cuts.items():
+        np.testing.assert_array_equal(got.cut(c), want, err_msg=f"cut({c})")

@@ -73,7 +73,10 @@ def test_port_sources_found():
                 "analysis/deadmod.py", "analysis/torchast.py",
                 "analysis/rules_trace.py", "analysis/rules_recompile.py",
                 "analysis/rules_concurrency.py",
-                "analysis/rules_registry.py"):
+                "analysis/rules_registry.py", "examples/quickstart.py",
+                "examples/approx_vs_exact.py", "examples/graph_pipeline.py",
+                "examples/elastic_restart.py", "examples/serve_lm.py",
+                "examples/train_lm.py"):
         assert mod in rel, mod
 
 
@@ -147,7 +150,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.distributed.sharding, repro_torch.launch.platform, "
             "repro_torch.launch.dryrun, repro_torch.tools.calibrate_planner, "
             "repro_torch.tools.check_build_budget, repro_torch.analysis, "
-            "repro_torch.analysis.__main__; "
+            "repro_torch.analysis.__main__, repro_torch.examples.quickstart, "
+            "repro_torch.examples.approx_vs_exact, "
+            "repro_torch.examples.graph_pipeline, "
+            "repro_torch.examples.elastic_restart, "
+            "repro_torch.examples.serve_lm, repro_torch.examples.train_lm; "
             "bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad")

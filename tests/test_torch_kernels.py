@@ -9,9 +9,14 @@ equal element for element; float32 segment sums agree to 1e-5 relative
 The round wrapper takes the reference's peeled flags packed into its key
 (``peel_key``).  The states the CUDA round kernel skips (peeled before the
 round or in it) are cases of the round tests, and the tricount kernel's
-extreme shapes and densities have cases of their own.  The CUDA kernels themselves are held to these plain versions by
-tests/test_torch_cuda.py (on a card) and ``chip_smoke.py``.
+extreme shapes and densities have cases of their own.  The CUDA kernels
+themselves are held to these plain versions by tests/test_torch_cuda.py
+(on a card) and ``chip_smoke.py``.  The interpret-mode megakernel's
+rounds are computed once per case, on a few threads, while the first
+tests run.
 """
+from concurrent.futures import ThreadPoolExecutor, wait
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +33,7 @@ from repro_torch.kernels.peel_round import (PEELED, fused_peel_round,
                                             peel_key)
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.kernels.tricount import tricount_oriented, tricount_per_edge
+from test_torch_facade import _once
 
 # one intra-op thread: the suite runs its workers on shared cores, and
 # idle OpenMP threads spin against the other workers' tests
@@ -125,28 +131,62 @@ def test_peel_round_ref_and_wrapper_match_reference(n_r, E, C, kind):
         assert_round(wrapped, want)
 
 
-@pytest.mark.parametrize("n_r,E,kind", [
-    (50, 65, "random"), (130, 400, "random"), (60, 150, "all peeled"),
-    (60, 150, "all dying"), (40, 80, "long runs")])
+PALLAS_ROUNDS = [(50, 65, "random"), (130, 400, "random"),
+                 (60, 150, "all peeled"), (60, 150, "all dying"),
+                 (40, 80, "long runs")]
+PALLAS_LEVELS = (2, 6)
+
+
+def pallas_round_case(n_r, E, kind):
+    return random_round(np.random.default_rng(E), n_r, E, 3, kind)
+
+
+def reference_pallas_round(n_r, E, kind):
+    """The Pallas megakernel (interpret mode) on the padded plan of
+    ``pallas_round_case``'s edges at each of ``PALLAS_LEVELS``, once."""
+    def run():
+        block_n, chunk_e = 32, 64
+        rids, members, state = pallas_round_case(n_r, E, kind)
+        ids_p, mem_p, n_r_pad, max_chunks = peel_round_plan(
+            rids, members, n_r, block_n=block_n, chunk_e=chunk_e)
+        ids_p, mem_p = jnp.asarray(ids_p), jnp.asarray(mem_p)
+        pad = n_r_pad - n_r
+        padded = [np.concatenate([x, np.full(pad, fill, np.int32)])
+                  for x, fill in zip(state, (0, 1, -1, -1))]
+        c0, nch = chunk_windows(ids_p, n_r_pad, block_n, chunk_e,
+                                max_chunks)
+        out = {}
+        for level in PALLAS_LEVELS:
+            want = j_fused_peel_round(
+                ids_p, mem_p, *(jnp.asarray(x) for x in padded),
+                jnp.int32(level), jnp.int32(3), c0, nch, block_n=block_n,
+                chunk_e=chunk_e, max_chunks=max_chunks, interpret=True)
+            out[level] = [np.asarray(w)[:n_r] for w in want]
+        return out
+    return _once(("kernels", "pallas round", n_r, E, kind), run)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_pool():
+    """The interpret-mode megakernel of every Pallas round case, computed
+    on a few threads from the module's first test on (XLA's compiles
+    release the interpreter lock); pending work dropped at the end."""
+    with ThreadPoolExecutor(max_workers=3,
+                            thread_name_prefix="reference") as pool:
+        futures = [pool.submit(reference_pallas_round, *c)
+                   for c in PALLAS_ROUNDS]
+        yield
+        for f in futures:
+            f.cancel()
+        wait(futures)
+
+
+@pytest.mark.parametrize("n_r,E,kind", PALLAS_ROUNDS)
 def test_peel_round_matches_pallas_interpret(n_r, E, kind):
     """The Pallas megakernel (interpret mode) on its padded plan vs the
     port's wrapper on the CSR plan of the same edges."""
-    rng = np.random.default_rng(E)
-    block_n, chunk_e = 32, 64
-    rids, members, state = random_round(rng, n_r, E, 3, kind)
-    ids_p, mem_p, n_r_pad, max_chunks = peel_round_plan(
-        rids, members, n_r, block_n=block_n, chunk_e=chunk_e)
-    ids_p, mem_p = jnp.asarray(ids_p), jnp.asarray(mem_p)
-    pad = n_r_pad - n_r
-    padded = [np.concatenate([x, np.full(pad, fill, np.int32)])
-              for x, fill in zip(state, (0, 1, -1, -1))]
-    c0, nch = chunk_windows(ids_p, n_r_pad, block_n, chunk_e, max_chunks)
-    for level in (2, 6):
-        want = j_fused_peel_round(
-            ids_p, mem_p, *(jnp.asarray(x) for x in padded),
-            jnp.int32(level), jnp.int32(3), c0, nch, block_n=block_n,
-            chunk_e=chunk_e, max_chunks=max_chunks, interpret=True)
-        want = [np.asarray(w)[:n_r] for w in want]
+    rids, members, state = pallas_round_case(n_r, E, kind)
+    for level, want in reference_pallas_round(n_r, E, kind).items():
         assert_skipped_deg_kept(want, state, level)
         assert_round(port_round(rids, members, state, level, 3), want)
 

@@ -5,12 +5,16 @@ deepseek-v2-lite-16b (MoE + MLA), against the reference on the CPU.
 The same numpy inputs go through both: parameters are drawn with numpy at
 the reference's shapes and scales (``jax.eval_shape`` of its
 ``init_params``, so its init is never compiled) and fed to the reference's
-jitted functions and to the port.  Everything is float32 at smoke widths;
-the tolerances are stated per test.  The capacity drops are compared
+jitted functions and to the port.  The reference's forward and decode
+runs of the configs are computed once each, on a few threads from the
+module's first test on (XLA's compiles release the interpreter lock).
+Everything is float32 at smoke widths; the tolerances are stated per
+test.  The capacity drops are compared
 exactly: the outputs are equal where an entry drops, so the port drops the
 reference's entries.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from repro.models.transformer import MLAConfig as JMLA, MoEConfig as JMoE
 from repro_torch.configs import get_arch
 from repro_torch.kernels import launch_counts
 from repro_torch.models import transformer as T
+from test_torch_facade import _once
 from test_torch_transformer import _port_config as port_config
 from test_torch_transformer import j_params as np_params, ref_shapes, t
 
@@ -62,6 +67,61 @@ def pair(name, seed=0):
     tc = port_config(jc)
     jp = np_params(jc, seed)
     return jc, tc, jp, T.params_from_reference(jp, tc, device="cpu")
+
+
+# test_prefill_then_decode_matches_reference's batch, cache length and
+# step lengths
+DECODE_B, DECODE_LEN, DECODE_STEPS = 3, 12, (5, 1, 1, 1)
+_POOL = ThreadPoolExecutor(max_workers=4, thread_name_prefix="reference")
+
+
+def forward_tokens(vocab):
+    return np.random.default_rng(5).integers(0, vocab, (2, 19)).astype(
+        np.int32)
+
+
+def decode_tokens(vocab):
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, vocab, (DECODE_B, S)).astype(np.int32)
+            for S in DECODE_STEPS]
+
+
+def reference_forward(name):
+    """The reference's logits of ``forward_tokens``, once."""
+    jc = CONFIGS[name]
+    return _once(("moe forward", name), lambda: np.asarray(j_forward(
+        np_params(jc, 0), jnp.asarray(forward_tokens(jc.vocab)), jc)))
+
+
+def reference_decode(name):
+    """The reference's (init cache shapes, [(logits, cache, length)] per
+    step of ``decode_tokens``), once."""
+    def run():
+        jc = CONFIGS[name]
+        jp = np_params(jc, 0)
+        cache = JT.init_cache(jc, DECODE_B, DECODE_LEN)
+        shapes = [c.shape for c in cache]
+        length, steps = jnp.zeros((), jnp.int32), []
+        for toks in decode_tokens(jc.vocab):
+            logits, cache, length = j_decode(jp, jnp.asarray(toks), cache,
+                                             length, jc)
+            steps.append(jax.device_get((logits, cache, length)))
+        return shapes, steps
+    return _once(("moe decode", name), run)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_pool():
+    """The reference's forward and decode runs of every config, submitted
+    to the pool when the module's first test runs (the decode runs,
+    the costliest, first); at the end, pending work is dropped and
+    running work waited for."""
+    futures = [_POOL.submit(reference_decode, n) for n in CONFIGS]
+    futures += [_POOL.submit(reference_forward, n) for n in CONFIGS]
+    yield
+    for f in futures:
+        f.cancel()
+    wait(futures)
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +349,9 @@ def test_forward_matches_reference(name):
     variants; the port's prefill attention is the flash-attention plain
     twin on the CPU.  rtol/atol 1e-4: float32 through two layers and the
     unembedding (the observed gap is ~2e-6)."""
-    jc, tc, jp, tp = pair(name)
-    toks = np.random.default_rng(5).integers(0, tc.vocab, (2, 19)).astype(
-        np.int32)
-    want = np.asarray(j_forward(jp, jnp.asarray(toks), jc))
+    _, tc, _, tp = pair(name)
+    toks = forward_tokens(tc.vocab)
+    want = reference_forward(name)
     before = launch_counts["flash_attention"]
     got = T.forward(tp, t(toks), tc).numpy()
     assert launch_counts["flash_attention"] == before  # CPU: plain twin
@@ -306,17 +365,13 @@ def test_prefill_then_decode_matches_reference(name):
     three 1-token steps: logits (rtol/atol 1e-4) and the whole cache
     (1e-5) equal the reference's each step; the port writes its cache in
     place."""
-    jc, tc, jp, tp = pair(name)
-    rng = np.random.default_rng(6)
-    B, max_len = 3, 12
-    jcache = JT.init_cache(jc, B, max_len)
-    tcache = T.init_cache(tc, B, max_len, device="cpu")
-    assert [c.shape for c in tcache] == [c.shape for c in jcache]
-    jlen, tlen = jnp.zeros((), jnp.int32), 0
-    for S in (5, 1, 1, 1):
-        toks = rng.integers(0, tc.vocab, (B, S)).astype(np.int32)
-        jlog, jcache, jlen = j_decode(jp, jnp.asarray(toks), jcache, jlen,
-                                      jc)
+    _, tc, _, tp = pair(name)
+    shapes, want = reference_decode(name)
+    tcache = T.init_cache(tc, DECODE_B, DECODE_LEN, device="cpu")
+    assert [c.shape for c in tcache] == shapes
+    tlen = 0
+    for toks, (jlog, jcache, jlen) in zip(decode_tokens(tc.vocab), want,
+                                          strict=True):
         tlog, tcache, tlen = T.decode_step(tp, t(toks), tcache, tlen, tc)
         assert tlen == int(jlen)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),

@@ -6,12 +6,16 @@ The same numpy inputs go through both: parameters at the reference's
 shapes and scales (``test_torch_transformer.j_params``) carried across by
 ``params_from_reference``, the optimizer state by
 ``opt_state_from_reference``.  The reference's loss, gradient and steps
-are jitted once per config and shape.  Everything is float32 at smoke
-widths unless a test says otherwise; tolerances are stated per test.
+are jitted once per config and shape; the gradients and the microbatched
+step are computed once, on a few threads from the module's first test on
+(XLA's compiles release the interpreter lock).  Everything is float32 at
+smoke widths unless a test says otherwise; tolerances are stated per
+test.
 """
 import dataclasses
 import os
 import zipfile
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +45,7 @@ from repro_torch.launch.train import train_lm
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
 from repro_torch.tree import flatten_with_paths, unflatten
+from test_torch_facade import _once
 from test_torch_transformer import _port_config as port_config
 from test_torch_transformer import j_params, t
 
@@ -110,6 +115,45 @@ def pair(arch, **kw):
     return jc, tc, jp, T.params_from_reference(jp, tc, device="cpu")
 
 
+def reference_loss_grad(arch):
+    """The reference's loss and gradient of ``pair(arch)``'s parameters on
+    ``batch(vocab, 1)``, once."""
+    def run():
+        jc = j_get_arch(arch).make_smoke_config()
+        b = batch(jc.vocab, 1)
+        return jax.device_get(j_value_and_grad(
+            j_params(jc), jnp.asarray(b["tokens"]),
+            jnp.asarray(b["labels"]), jc))
+    return _once(("train", "loss grad", arch), run)
+
+
+def reference_micro():
+    """The reference's ``lm_train_step_microbatched(n_micro=2)`` of
+    minicpm-2b on ``batch(vocab, 20, rows=4)`` from zero moments, once."""
+    def run():
+        jc = j_get_arch("minicpm-2b").make_smoke_config()
+        jp = j_params(jc)
+        b = batch(jc.vocab, 20, rows=4)
+        return jax.device_get(j_train_micro(
+            jp, np_state(jp), jax.tree.map(jnp.asarray, b), jc, OPT, 2))
+    return _once(("train", "micro"), run)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_pool():
+    """The reference's gradients and microbatched step, computed on a few
+    threads from the module's first test on; pending work dropped at the
+    end."""
+    with ThreadPoolExecutor(max_workers=3,
+                            thread_name_prefix="reference") as pool:
+        futures = [pool.submit(reference_loss_grad, a) for a in ARCHS]
+        futures.append(pool.submit(reference_micro))
+        yield
+        for f in futures:
+            f.cancel()
+        wait(futures)
+
+
 # ---------------------------------------------------------------------------
 # loss and gradient
 # ---------------------------------------------------------------------------
@@ -121,10 +165,9 @@ def test_loss_and_gradient_match_reference(arch):
     projections among them (the training route's scan is differentiable
     on the CPU as on the card; no flash launch).  ``remat=True`` gives
     the same gradients bit for bit."""
-    jc, tc, jp, tp = pair(arch)
+    _, tc, _, tp = pair(arch)
     b = batch(tc.vocab, 1)
-    jl, jg = j_value_and_grad(jp, jnp.asarray(b["tokens"]),
-                              jnp.asarray(b["labels"]), jc)
+    jl, jg = reference_loss_grad(arch)
     before = dict(launch_counts)
     loss, grads = S.value_and_grad(T.loss_fn, tp, t(b["tokens"]),
                                    t(b["labels"]), tc)
@@ -249,10 +292,10 @@ def test_microbatched_step_matches_reference_and_full_batch():
     """``lm_train_step_microbatched(n_micro=2)`` equals the reference's
     (``assert_step_close``), and its gradient, read from mu after one step
     (mu = 0.1·g), equals the full batch's within float32 rounding."""
-    jc, tc, jp, tp = pair("minicpm-2b")
+    _, tc, jp, tp = pair("minicpm-2b")
     b = batch(tc.vocab, 20, rows=4)
     js = np_state(jp)
-    want = j_train_micro(jp, js, jax.tree.map(jnp.asarray, b), jc, OPT, 2)
+    want = reference_micro()
     got = S.lm_train_step_microbatched(
         tp, T.opt_state_from_reference(js, tp), on_torch(b), tc,
         port_opt(OPT), 2)
